@@ -1,0 +1,70 @@
+"""Camera model: pinhole intrinsics + world-to-camera extrinsics.
+
+COLMAP-style R/t convention (Horizon-GS `graphics_utils.py`): `R` is
+stored transposed (camera-to-world rotation) and `t` is the world-to-camera
+translation. The rasterizer consumes a 4x4 world-to-camera `viewmat`
+(`x_cam = viewmat @ x_world`) and a 3x3 intrinsics matrix `K`. The matrices
+are built in numpy, exactly as the JAX package builds them, and then become
+tensors on the requested device.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from horizongs_tpu_torch.device import DeviceLike, resolve_device
+
+
+def fov_to_focal(fov: float, pixels: int) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def world_to_view(R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """4x4 float32 world-to-camera matrix (`getWorld2View2` without the
+    recentering, which the dataset readers of a later slice bring)."""
+    Rt = np.zeros((4, 4), dtype=np.float64)
+    Rt[:3, :3] = R.T
+    Rt[:3, 3] = t
+    Rt[3, 3] = 1.0
+    return Rt.astype(np.float32)
+
+
+class Camera(NamedTuple):
+    """A render-ready camera: float32 tensors on one device, static dims.
+
+    `viewmat` is world->camera (4, 4), `K` the intrinsics (3, 3) at the
+    render resolution, `cam_center` the camera origin in world space (for
+    view directions and the LOD distance rule)."""
+    viewmat: torch.Tensor
+    K: torch.Tensor
+    width: int
+    height: int
+    cam_center: torch.Tensor
+    uid: int = 0                  # camera index (appearance embedding row)
+    resolution_scale: float = 1.0
+
+
+def make_camera(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,
+                width: int, height: int, uid: int = 0,
+                resolution_scale: float = 1.0,
+                device: DeviceLike = None) -> Camera:
+    """Camera from COLMAP-convention extrinsics + fov intrinsics."""
+    dev = resolve_device(device)
+    viewmat = world_to_view(R, t)
+    cam_center = np.linalg.inv(viewmat)[:3, 3]
+    fx = fov_to_focal(fovx, width)
+    fy = fov_to_focal(fovy, height)
+    K = np.array([[fx, 0, width / 2.0], [0, fy, height / 2.0], [0, 0, 1]],
+                 dtype=np.float32)
+    return Camera(
+        viewmat=torch.from_numpy(viewmat).to(dev),
+        K=torch.from_numpy(K).to(dev),
+        width=int(width),
+        height=int(height),
+        cam_center=torch.from_numpy(
+            np.asarray(cam_center, dtype=np.float32)).to(dev),
+        uid=uid, resolution_scale=resolution_scale,
+    )
