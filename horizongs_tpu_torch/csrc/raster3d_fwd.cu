@@ -15,21 +15,29 @@
 // of every instance, so the TPU wrapper's transposed (16, CAP+2G) instance
 // copy is never built. Outputs keep the TPU kernel's layout: acc
 // (n_tiles, 5, 1024) holds its rows 6-10 (rgb, depth, alpha) and log_t
-// (n_tiles, 2, 1024) holds row 0 the final log T and row 1 i_fin.
+// (n_tiles, 2, 1024) holds row 0 the final log T and row 1 i_fin; besides,
+// n_contrib (n_tiles, 1024) int32.
+//
+// A pixel stops once its log T is at or below log(1e-4); its final log T
+// is then the sum up to and including the gaussian that stopped it, where
+// the TPU kernel's keeps adding the rest of the chunk pair (both
+// transmittances are below 1e-4 there). n_contrib is the number of
+// gaussians of the segment the pixel walked: the index of the one that
+// stopped it plus one, or the segment's length. The backward kernel
+// (raster3d_bwd.cu) needs it: its reverse walk rebuilds log T before each
+// gaussian by subtracting log1p(-alpha) from the final log T, which holds
+// only the gaussians before the pixel's own stop. A tile-wide start such as
+// i_fin would subtract gaussians this pixel never added.
 //
 // i_fin: the number of G = 128 gaussian chunks (counted from the segment
-// start) that this tile's walk reached before every pixel had stopped. The
-// backward kernel's port reads it to start its reverse walk. (The TPU kernel
-// counts chunks walked in pairs from a 128-aligned base, so the two are not
-// compared bitwise.) A pixel stops once its log T is at or below log(1e-4);
-// its final log T is then the sum up to and including the gaussian that
-// stopped it, where the TPU kernel's keeps adding the rest of the chunk pair.
-// Both transmittances are below 1e-4 there.
+// start) that this tile's walk reached before every pixel had stopped,
+// i.e. ceil(max n_contrib / 128). (The TPU kernel counts chunks walked in
+// pairs from a 128-aligned base, so the two are not compared bitwise.)
 //
 // What bounds it: each pixel-gaussian pair costs at least one exp on the
 // special-function units (16 per SM per clock) and about 15 FP32
 // operations on the CUDA cores (256 per SM per clock, an FMA counting two),
-// so the SFU is the limit; bytes (about 40 B per instance read, 28 B per
+// so the SFU is the limit; bytes (about 40 B per instance read, 32 B per
 // pixel written) are far below either. The design keeps the SFUs fed: one
 // block of 256 threads per 32x32 tile, four pixels per thread, the segment
 // staged 128 gaussians at a time in shared memory (one gaussian per thread
@@ -63,7 +71,8 @@ raster3d_fwd_kernel(const float* __restrict__ fields,
                     const int* __restrict__ tile_starts,
                     int n_tiles_x,
                     float* __restrict__ acc,
-                    float* __restrict__ log_t) {
+                    float* __restrict__ log_t,
+                    int* __restrict__ n_contrib) {
   __shared__ float s_f[kFields][kChunk];
 
   const int t = blockIdx.x;
@@ -79,6 +88,11 @@ raster3d_fwd_kernel(const float* __restrict__ fields,
   float px[kPixPerThread], py[kPixPerThread], logT[kPixPerThread];
   float cr[kPixPerThread], cg[kPixPerThread], cb[kPixPerThread];
   float cd[kPixPerThread], ca[kPixPerThread];
+  // n_contrib is written to device memory at once (the segment's length)
+  // and again where the pixel stops, not kept in registers: held in four
+  // more registers it made ptxas serialise sigma's products, and K1 took
+  // about a fifth longer on an H100
+  int* n_t = n_contrib + static_cast<size_t>(t) * kPixels;
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
     const int p = tid + k * kThreads;
@@ -86,6 +100,7 @@ raster3d_fwd_kernel(const float* __restrict__ fields,
     py[k] = y0 + static_cast<float>(p / kTileW) + 0.5f;
     logT[k] = 0.0f;
     cr[k] = cg[k] = cb[k] = cd[k] = ca[k] = 0.0f;
+    n_t[p] = count;
   }
 
   int i_fin = 0;
@@ -124,6 +139,7 @@ raster3d_fwd_kernel(const float* __restrict__ fields,
         cd[k] += w * s_f[9][j];
         ca[k] += w;
         logT[k] += log1pf(-alpha);
+        if (logT[k] <= kLogTEps) n_t[tid + k * kThreads] = base + j + 1;
       }
     }
 
@@ -157,13 +173,13 @@ raster3d_fwd_kernel(const float* __restrict__ fields,
 // cudaGetLastError() as an int (0 = launched). All pointers are device
 // pointers; fields is (N, 10) float32 row-major, gauss_id (CAP,) int32,
 // tile_starts (n_tiles + 1,) int32, acc (n_tiles, 5, 1024) and log_t
-// (n_tiles, 2, 1024) float32.
+// (n_tiles, 2, 1024) float32, n_contrib (n_tiles, 1024) int32.
 extern "C" int raster3d_fwd(const float* fields, const int* gauss_id,
                             const int* tile_starts, int n_tiles,
                             int n_tiles_x, float* acc, float* log_t,
-                            void* stream) {
+                            int* n_contrib, void* stream) {
   raster3d_fwd_kernel<<<n_tiles, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      fields, gauss_id, tile_starts, n_tiles_x, acc, log_t);
+      fields, gauss_id, tile_starts, n_tiles_x, acc, log_t, n_contrib);
   return static_cast<int>(cudaGetLastError());
 }

@@ -82,7 +82,9 @@ def project_3dgs(
     c = c + EPS2D
     det = a * c - b * b
 
-    valid &= det > 0.0
+    # `valid` feeds torch.where in the graph above, so it is never updated
+    # in place
+    valid = valid & (det > 0.0)
     det_safe = torch.where(det > 0, det, torch.ones_like(det))
     conic = torch.stack([c / det_safe, -b / det_safe, a / det_safe], dim=-1)
 
@@ -94,9 +96,9 @@ def project_3dgs(
     mean_y = fy * y * rz + cy
     means2d = torch.stack([mean_x, mean_y], dim=-1)
 
-    valid &= radius > 0.0
-    valid &= (mean_x + radius > 0) & (mean_x - radius < width)
-    valid &= (mean_y + radius > 0) & (mean_y - radius < height)
+    valid = (valid & (radius > 0.0)
+             & (mean_x + radius > 0) & (mean_x - radius < width)
+             & (mean_y + radius > 0) & (mean_y - radius < height))
 
     radii = torch.where(valid, radius, torch.zeros_like(radius))
     return ProjectedGaussians(radii=radii, means2d=means2d, depths=z,

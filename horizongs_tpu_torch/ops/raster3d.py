@@ -1,14 +1,16 @@
-"""K1: 3DGS front-to-back compositing of each tile's depth-sorted instance
-segment, forward only.
+"""K1 and K2: 3DGS compositing of each tile's depth-sorted instance
+segment, front to back (K1) and its reverse walk for the gradients (K2).
 
-`rasterize_fwd` launches the CUDA kernel `csrc/raster3d_fwd.cu` for CUDA
-tensors and runs `rasterize_fwd_plain`, the same function in plain
-PyTorch, for CPU tensors. The kernel replaces the Pallas TPU kernel
-`horizongs_tpu/ops/pallas/raster3d.py::_fwd_kernel`; its source says what
-bounds it on Hopper (the exp per pixel-gaussian pair on the special-
-function units) and how its design meets that.
+`rasterize_fwd` launches the CUDA kernel `csrc/raster3d_fwd.cu` and
+`rasterize_bwd` the kernel `csrc/raster3d_bwd.cu` for CUDA tensors; for CPU
+tensors they run `rasterize_fwd_plain` and `rasterize_bwd_plain`, the same
+functions in plain PyTorch. The kernels replace the Pallas TPU kernels
+`horizongs_tpu/ops/pallas/raster3d.py::_fwd_kernel` and `_bwd_kernel`;
+their sources say what bounds them on Hopper (the exp, log and reciprocal
+per pixel-gaussian pair on the special-function units) and how their
+designs meet that.
 
-Contract (the TPU kernel's, minus the instance copy it needed):
+K1's contract (the TPU kernel's, minus the instance copy it needed):
   fields      (N, 10) float32: mx, my, conic a, b, c, opacity, r, g, b, depth
   gauss_id    (CAP,) int32 gaussian of each sorted instance
   tile_starts (n_tiles+1,) int32: tile t's segment is
@@ -18,6 +20,17 @@ Contract (the TPU kernel's, minus the instance copy it needed):
      logT (n_tiles, 2, P) float32: row 0 the final log transmittance, row 1
           i_fin, the number of G-gaussian chunks the tile's walk reached
           before all its pixels stopped (0 for an empty tile)
+     n_contrib (n_tiles, P) int32: the gaussians of its segment each pixel
+          walked before it stopped (log T at or below log 1e-4) — the
+          one that stopped it included — or the segment's length. The
+          final log T holds exactly these gaussians' log1p(-alpha).
+K2's contract: the same fields, gauss_id and tile_starts, the cotangents
+d_acc (n_tiles, 5, P) and d_logT (n_tiles, P) of K1's acc and final log T,
+that final log T (n_tiles, P) and n_contrib -> grad_fields (N, 10), the
+gradient of every gaussian's fields, summed over its instances. Each
+pixel's reverse walk starts at its own n_contrib: a tile-wide start
+(i_fin) would subtract from a stopped pixel's log T gaussians it never
+added. Gaussians that no pixel walked get exactly zero.
 Tiles are 32x32 (P = 1024 pixels, row-major), tile t at column
 t % n_tiles_x, row t // n_tiles_x.
 """
@@ -45,7 +58,10 @@ LOG_T_EPS = math.log(TRANSMITTANCE_EPS)
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("raster3d_fwd",
-                    [_VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP])
+                    [_VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP])
+KERNEL_BWD = CudaKernel("raster3d_bwd",
+                        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP,
+                         _VP])
 
 
 def local_pixel_coords(device):
@@ -54,17 +70,50 @@ def local_pixel_coords(device):
     return (p % TILE_W).float() + 0.5, (p // TILE_W).float() + 0.5
 
 
-def segment_alpha(f: torch.Tensor, t: int, n_tiles_x: int, lx: torch.Tensor,
-                  ly: torch.Tensor) -> torch.Tensor:
-    """(P, count) alpha of tile t's pixels (local centres lx, ly) against
-    the fields f (count, 10) of its segment, capped and cut off as K1 does,
-    with sigma's products and sums in the kernel's order."""
+def _segment_geometry(f: torch.Tensor, t: int, n_tiles_x: int,
+                      lx: torch.Tensor, ly: torch.Tensor):
+    """(dx, dy, raw alpha, alpha), each (P, count), of tile t's pixels
+    (local centres lx, ly) against the fields f (count, 10) of its segment:
+    alpha capped and cut off as K1 does, sigma's products and sums in the
+    kernel's order."""
     dx = (lx + float((t % n_tiles_x) * TILE_W))[:, None] - f[None, :, 0]
     dy = (ly + float((t // n_tiles_x) * TILE_H))[:, None] - f[None, :, 1]
     sigma = (0.5 * f[None, :, 2] * dx * dx + f[None, :, 3] * dx * dy
              + 0.5 * f[None, :, 4] * dy * dy)
-    alpha = torch.clamp_max(f[None, :, 5] * torch.exp(-sigma), MAX_ALPHA)
-    return torch.where(alpha >= ALPHA_CUTOFF, alpha, torch.zeros_like(alpha))
+    raw = f[None, :, 5] * torch.exp(-sigma)
+    alpha = torch.clamp_max(raw, MAX_ALPHA)
+    alpha = torch.where(alpha >= ALPHA_CUTOFF, alpha, torch.zeros_like(alpha))
+    return dx, dy, raw, alpha
+
+
+def segment_alpha(f: torch.Tensor, t: int, n_tiles_x: int, lx: torch.Tensor,
+                  ly: torch.Tensor) -> torch.Tensor:
+    """(P, count) alpha of tile t's pixels against its segment's fields."""
+    return _segment_geometry(f, t, n_tiles_x, lx, ly)[3]
+
+
+def n_contrib_off_the_stop(fields: torch.Tensor, gauss_id: torch.Tensor,
+                           tile_starts: torch.Tensor, n_tiles_x: int,
+                           nc_a: torch.Tensor, logT_a: torch.Tensor,
+                           nc_b: torch.Tensor, logT_b: torch.Tensor) -> int:
+    """Pixels whose n_contrib differs between two runs of K1 (counts and
+    final log T, each (n_tiles, P)) and that are not at the 1e-4 stop.
+    Summed in another order, a pixel's log T may cross log 1e-4 one
+    contributing gaussian later, after any number of gaussians with alpha
+    below 1/255. So where the counts differ, both final log T must be at
+    the stop (within 1e-4) and at most one gaussian between the two counts
+    may have alpha >= 1/255 at that pixel; 0 means the runs agree."""
+    lx, ly = local_pixel_coords(fields.device)
+    bad = 0
+    for t, p in (nc_a != nc_b).nonzero().tolist():
+        lo, hi = sorted((int(nc_a[t, p]), int(nc_b[t, p])))
+        s = int(tile_starts[t])
+        alpha = segment_alpha(fields[gauss_id[s + lo:s + hi].long()], t,
+                              n_tiles_x, lx, ly)[p]
+        at_stop = (max(float(logT_a[t, p]), float(logT_b[t, p]))
+                   <= LOG_T_EPS + 1e-4)
+        bad += int(not at_stop or int((alpha > 0).sum()) > 1)
+    return bad
 
 
 def rasterize_fwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
@@ -73,11 +122,13 @@ def rasterize_fwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
     """Plain PyTorch K1, tile by tile: a (P, count) alpha matrix, the
     log-transmittance before each gaussian as an exclusive cumsum of
     log1p(-alpha), and the w mask — the dense oracle's arithmetic
-    restricted to the segment, in the kernel's log space and order."""
+    restricted to the segment, in the kernel's log space and order.
+    Differentiable in `fields` under autograd (the tests hold K2 to it)."""
     n_tiles = n_tiles_x * n_tiles_y
     dev = fields.device
     acc = torch.zeros((n_tiles, N_ACC, P), dtype=torch.float32, device=dev)
     logT = torch.zeros((n_tiles, 2, P), dtype=torch.float32, device=dev)
+    n_contrib = torch.zeros((n_tiles, P), dtype=torch.int32, device=dev)
     lx, ly = local_pixel_coords(dev)
     starts = tile_starts.tolist()
     for t in range(n_tiles):
@@ -100,13 +151,14 @@ def rasterize_fwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
         n_live = live.sum(dim=1)                             # >= 1
         final = incl.gather(1, (n_live - 1)[:, None])[:, 0]
         logT[t, 0] = final
+        n_contrib[t] = n_live.int()
         n_chunks = -(-count // G)
         if bool((final > LOG_T_EPS).any()):
             i_fin = n_chunks
         else:
             i_fin = int(((n_live - 1) // G).max()) + 1
         logT[t, 1] = float(i_fin)
-    return acc, logT
+    return acc, logT, n_contrib
 
 
 def _check(name, x, dtype, ndim, device):
@@ -119,14 +171,8 @@ def _check(name, x, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def rasterize_fwd(fields: torch.Tensor, gauss_id: torch.Tensor,
-                  tile_starts: torch.Tensor, n_tiles_x: int, n_tiles_y: int):
-    """K1 (see the module docstring): the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors. `gauss_id` values and the
-    monotonicity of `tile_starts` are the binning's guarantee and are not
-    checked on the device."""
+def _check_segments(fields, gauss_id, tile_starts, n_tiles):
     dev = fields.device
-    n_tiles = n_tiles_x * n_tiles_y
     _check("fields", fields, torch.float32, 2, dev)
     _check("gauss_id", gauss_id, torch.int32, 1, dev)
     _check("tile_starts", tile_starts, torch.int32, 1, dev)
@@ -138,18 +184,121 @@ def rasterize_fwd(fields: torch.Tensor, gauss_id: torch.Tensor,
                          f"entries, got {tile_starts.shape[0]}")
     if max(fields.shape[0], gauss_id.shape[0]) >= 2 ** 31:
         raise ValueError("more than 2^31 gaussians or instances")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the rasterizer kernels run on cuda or cpu, "
+                         f"not {dev}")
+
+
+def _check_shape(name, x, shape):
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+
+
+def rasterize_fwd(fields: torch.Tensor, gauss_id: torch.Tensor,
+                  tile_starts: torch.Tensor, n_tiles_x: int, n_tiles_y: int):
+    """K1 (see the module docstring): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. Returns (acc, logT, n_contrib).
+    `gauss_id` values and the monotonicity of `tile_starts` are the
+    binning's guarantee and are not checked on the device."""
+    dev = fields.device
+    n_tiles = n_tiles_x * n_tiles_y
+    _check_segments(fields, gauss_id, tile_starts, n_tiles)
     if dev.type == "cpu":
         return rasterize_fwd_plain(fields, gauss_id, tile_starts, n_tiles_x,
                                    n_tiles_y)
-    if dev.type != "cuda":
-        raise ValueError(f"rasterize_fwd runs on cuda or cpu, not {dev}")
     acc = torch.empty((n_tiles, N_ACC, P), dtype=torch.float32, device=dev)
     logT = torch.empty((n_tiles, 2, P), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((n_tiles, P), dtype=torch.int32, device=dev)
     if n_tiles == 0:
-        return acc, logT
+        return acc, logT, n_contrib
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL.launch(fields.data_ptr(), gauss_id.data_ptr(),
                       tile_starts.data_ptr(), n_tiles, n_tiles_x,
-                      acc.data_ptr(), logT.data_ptr(), stream)
-    return acc, logT
+                      acc.data_ptr(), logT.data_ptr(), n_contrib.data_ptr(),
+                      stream)
+    return acc, logT, n_contrib
+
+
+def rasterize_bwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
+                        tile_starts: torch.Tensor, d_acc: torch.Tensor,
+                        d_logT: torch.Tensor, logT: torch.Tensor,
+                        n_contrib: torch.Tensor, n_tiles_x: int,
+                        n_tiles_y: int) -> torch.Tensor:
+    """Plain PyTorch K2, tile by tile, in closed form (no autograd): each
+    pixel's log T before every gaussian it walked is rebuilt from its final
+    log T by a suffix sum of log1p(-alpha) over [j, n_contrib), S_after by
+    a strict suffix sum of w·dL/dw, and the per-instance gradients are
+    column sums over the tile's pixels, added to the gaussians' rows."""
+    grad = torch.zeros_like(fields)
+    lx, ly = local_pixel_coords(fields.device)
+    starts = tile_starts.tolist()
+    for t in range(n_tiles_x * n_tiles_y):
+        s, e = starts[t], starts[t + 1]
+        count = e - s
+        if count == 0:
+            continue
+        ids = gauss_id[s:e].long()
+        f = fields[ids]                                      # (count, 10)
+        dx, dy, raw, alpha = _segment_geometry(f, t, n_tiles_x, lx, ly)
+        walked = (torch.arange(count, device=fields.device)[None, :]
+                  < n_contrib[t][:, None])                   # (P, count)
+        alpha = torch.where(walked, alpha, torch.zeros_like(alpha))
+        lam = torch.log1p(-alpha)
+        # log T before gaussian j = final log T - sum of lam over [j, n)
+        suffix = torch.flip(torch.cumsum(torch.flip(lam, [1]), 1), [1])
+        w = alpha * torch.exp(logT[t][:, None] - suffix)
+        g = d_acc[t]                                         # (5, P)
+        dw = g[0:4].T @ f[:, 6:10].T + g[4][:, None]         # (P, count)
+        wdw = w * dw
+        after = torch.flip(torch.cumsum(torch.flip(wdw, [1]), 1), [1]) - wdw
+        S_after = d_logT[t][:, None] + after
+        live = (alpha > 0) & (raw < MAX_ALPHA)
+        dsig = torch.where(live, S_after * (alpha / (1.0 - alpha)) - wdw,
+                           torch.zeros_like(wdw))
+        u, v = dsig * dx, dsig * dy
+        s0, sx, sy = dsig.sum(0), u.sum(0), v.sum(0)
+        sxx, sxy, syy = (u * dx).sum(0), (u * dy).sum(0), (v * dy).sum(0)
+        a, b, c, op = f[:, 2], f[:, 3], f[:, 4], f[:, 5]
+        gop = torch.where(op > 0, -s0 / torch.clamp_min(op, 1e-12),
+                          torch.zeros_like(s0))
+        gcd = (g[0:4] @ w).T                                 # (count, 4)
+        per_inst = torch.cat([
+            torch.stack([-(a * sx + b * sy), -(b * sx + c * sy), 0.5 * sxx,
+                         sxy, 0.5 * syy, gop], dim=1), gcd], dim=1)
+        grad.index_add_(0, ids, per_inst)
+    return grad
+
+
+def rasterize_bwd(fields: torch.Tensor, gauss_id: torch.Tensor,
+                  tile_starts: torch.Tensor, d_acc: torch.Tensor,
+                  d_logT: torch.Tensor, logT: torch.Tensor,
+                  n_contrib: torch.Tensor, n_tiles_x: int,
+                  n_tiles_y: int) -> torch.Tensor:
+    """K2 (see the module docstring): the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors. Returns grad_fields (N, 10)."""
+    dev = fields.device
+    n_tiles = n_tiles_x * n_tiles_y
+    _check_segments(fields, gauss_id, tile_starts, n_tiles)
+    for name, x, dtype, shape in (
+            ("d_acc", d_acc, torch.float32, (n_tiles, N_ACC, P)),
+            ("d_logT", d_logT, torch.float32, (n_tiles, P)),
+            ("logT", logT, torch.float32, (n_tiles, P)),
+            ("n_contrib", n_contrib, torch.int32, (n_tiles, P))):
+        _check(name, x, dtype, len(shape), dev)
+        _check_shape(name, x, shape)
+    if dev.type == "cpu":
+        return rasterize_bwd_plain(fields, gauss_id, tile_starts, d_acc,
+                                   d_logT, logT, n_contrib, n_tiles_x,
+                                   n_tiles_y)
+    grad = torch.zeros_like(fields)
+    if n_tiles == 0:
+        return grad
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        KERNEL_BWD.launch(fields.data_ptr(), gauss_id.data_ptr(),
+                          tile_starts.data_ptr(), d_acc.data_ptr(),
+                          d_logT.data_ptr(), logT.data_ptr(),
+                          n_contrib.data_ptr(), n_tiles, n_tiles_x,
+                          grad.data_ptr(), stream)
+    return grad

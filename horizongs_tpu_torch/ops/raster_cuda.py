@@ -1,11 +1,22 @@
 """CUDA-backed 3DGS rasterization, the counterpart of the JAX package's
 `ops/raster_pallas.py`: projection, SH colour and binning in PyTorch, the
-per-tile compositing in the hand-written K1 kernel (`ops/raster3d.py`).
+per-tile compositing in the hand-written kernels K1 (forward) and K2
+(backward) of `ops/raster3d.py`.
 
 The kernel boundary is the packed per-gaussian field matrix (N, 10):
-[mx, my, conic_a, conic_b, conic_c, opacity, r, g, b, depth]. This slice is
-forward only: the backward kernel (K2) and its gradient routing arrive with
-the training slice, so an input that requires grad is refused.
+[mx, my, conic_a, conic_b, conic_c, opacity, r, g, b, depth], wrapped in a
+`torch.autograd.Function` (`RasterCore`, the JAX package's `_raster_core`
+custom VJP). Everything before it (EWA projection, SH colour, the neural
+decode) and after it (background blend, depth modes, losses)
+differentiates with ordinary autograd; binning sees detached inputs, as
+the JAX wrapper's `stop_gradient`s make it.
+
+Gradient routing: K2 adds each instance's gradient into its gaussian's row
+of the (N, 10) field gradient itself (atomics), so the JAX package's
+routing fields and steps — `grad_slot`, `out_starts`, `inv_perm` and the
+un-sort + cumsum of `_instance_grads_to_fields` — have no counterpart
+here. Without a gradient (serving under `torch.no_grad()`, or no input
+requiring one) autograd records no node, so nothing is kept for backward.
 """
 from __future__ import annotations
 
@@ -22,7 +33,13 @@ from horizongs_tpu_torch.ops.binning import (
 )
 from horizongs_tpu_torch.ops.projection import ProjectedGaussians, project_3dgs
 from horizongs_tpu_torch.ops.raster import _TileGrid, _make_grid, _tiles_to_image
-from horizongs_tpu_torch.ops.raster3d import G, TILE_H, TILE_W, rasterize_fwd
+from horizongs_tpu_torch.ops.raster3d import (
+    G,
+    TILE_H,
+    TILE_W,
+    rasterize_bwd,
+    rasterize_fwd,
+)
 from horizongs_tpu_torch.ops.reference import ALPHA_CUTOFF, _sh_colors
 
 
@@ -66,10 +83,16 @@ class RasterInputs(NamedTuple):
 def build_raster_inputs(means, quats, scales, opacities, colors, viewmat, K,
                         width: int, height: int,
                         sh_degree: Optional[int] = None,
-                        cap: Optional[int] = None) -> RasterInputs:
+                        cap: Optional[int] = None,
+                        means2d_probe: Optional[torch.Tensor] = None
+                        ) -> RasterInputs:
     """Projection, SH colour, cull and binning: the K1 launch's inputs.
     `cap` defaults to max(4N, G); it is rounded up to G, and instances
-    beyond it are dropped and counted (`inst.n_dropped`)."""
+    beyond it are dropped and counted (`inst.n_dropped`).
+    `means2d_probe` (N, 2), when given, is added to the projected means
+    that go into the fields (and `proj.means2d`), so its gradient is the
+    screen-space gradient of the means; binning never sees it (it is zero
+    in use). The JAX wrapper takes the sum as `means2d_override`."""
     N = means.shape[0]
     grid = _make_grid(width, height, TILE_W, TILE_H)
     cap = cap if cap is not None else max(4 * N, G)
@@ -78,13 +101,44 @@ def build_raster_inputs(means, quats, scales, opacities, colors, viewmat, K,
     proj = project_3dgs(means, quats, scales, viewmat, K, width, height)
     cam_pos = torch.linalg.inv(viewmat)[:3, 3]
     rgb = _sh_colors(colors, sh_degree, means, cam_pos)
-    inst = build_tile_instances(proj.means2d, _cull_radii(proj, opacities),
-                                proj.depths, proj.conics, opacities,
-                                grid.n_tiles_x, grid.n_tiles_y, TILE_W,
-                                TILE_H, cap)
+    inst = build_tile_instances(
+        proj.means2d.detach(), _cull_radii(proj, opacities).detach(),
+        proj.depths.detach(), proj.conics.detach(), opacities.detach(),
+        grid.n_tiles_x, grid.n_tiles_y, TILE_W, TILE_H, cap)
+    if means2d_probe is not None:
+        proj = proj._replace(means2d=proj.means2d + means2d_probe)
     fields = torch.cat([proj.means2d, proj.conics, opacities[:, None], rgb,
                         proj.depths[:, None]], dim=-1).contiguous()
     return RasterInputs(proj, fields, inst, grid)
+
+
+class RasterCore(torch.autograd.Function):
+    """K1 forward, K2 backward, at the (N, 10) field boundary.
+
+    forward(fields, gauss_id, tile_starts, n_tiles_x, n_tiles_y) ->
+    (acc, logT, n_contrib) of `rasterize_fwd`; backward takes the
+    cotangents of acc and of logT's row 0 (row 1, i_fin, and n_contrib are
+    integer records with no gradient) and returns dL/dfields from
+    `rasterize_bwd` (K2, or its plain version for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, fields, gauss_id, tile_starts, n_tiles_x, n_tiles_y):
+        acc, logT, n_contrib = rasterize_fwd(fields, gauss_id, tile_starts,
+                                             n_tiles_x, n_tiles_y)
+        ctx.save_for_backward(fields, gauss_id, tile_starts, logT, n_contrib)
+        ctx.n_tiles = (n_tiles_x, n_tiles_y)
+        ctx.mark_non_differentiable(n_contrib)
+        return acc, logT, n_contrib
+
+    @staticmethod
+    def backward(ctx, d_acc, d_logT, _d_n_contrib):
+        fields, gauss_id, tile_starts, logT, n_contrib = ctx.saved_tensors
+        grad = rasterize_bwd(fields, gauss_id, tile_starts,
+                             d_acc.contiguous(),
+                             d_logT[:, 0].contiguous(),
+                             logT[:, 0].contiguous(), n_contrib,
+                             *ctx.n_tiles)
+        return grad, None, None, None, None
 
 
 def rasterize_cuda_3dgs(
@@ -93,25 +147,22 @@ def rasterize_cuda_3dgs(
     viewmat: torch.Tensor, K: torch.Tensor, width: int, height: int,
     background: torch.Tensor, sh_degree: Optional[int] = None,
     render_mode: str = "RGB", cap: Optional[int] = None,
+    means2d_probe: Optional[torch.Tensor] = None,
 ):
-    """Forward 3DGS rasterization through K1. colors are RGB (N, 3) or SH
-    (N, K, 3). Returns (render (H, W, C), alphas (H, W, 1), info) with the
-    outputs and `info` keys of the JAX package's `rasterize_pallas_3dgs`."""
+    """3DGS rasterization through K1, differentiable through K2. colors
+    are RGB (N, 3) or SH (N, K, 3). Returns (render (H, W, C), alphas
+    (H, W, 1), info) with the outputs and `info` keys of the JAX package's
+    `rasterize_pallas_3dgs`. `means2d_probe`: see `build_raster_inputs`."""
     if render_mode not in ("RGB", "RGB+D", "RGB+ED"):
         raise ValueError(f"Unknown render_mode: {render_mode}")
-    if any(t.requires_grad for t in (means, quats, scales, opacities,
-                                     colors, viewmat, K)):
-        raise RuntimeError(
-            "rasterize_cuda_3dgs is forward-only: the backward kernel (K2) "
-            "arrives with the training slice of the port. Render under "
-            "torch.no_grad().")
     ri = build_raster_inputs(means, quats, scales, opacities, colors,
                              viewmat, K, width, height, sh_degree=sh_degree,
-                             cap=cap)
+                             cap=cap, means2d_probe=means2d_probe)
     grid = ri.grid
-    acc, logT2 = rasterize_fwd(ri.fields, ri.inst.gauss_id,
-                               ri.inst.tile_starts, grid.n_tiles_x,
-                               grid.n_tiles_y)   # (n_tiles, 5, P), (n_tiles, 2, P)
+    # (n_tiles, 5, P), (n_tiles, 2, P)
+    acc, logT2, _ = RasterCore.apply(ri.fields, ri.inst.gauss_id,
+                                     ri.inst.tile_starts, grid.n_tiles_x,
+                                     grid.n_tiles_y)
 
     color_t = acc[:, 0:3, :].transpose(1, 2)              # (n_tiles, P, 3)
     depth_t = acc[:, 3:4, :].transpose(1, 2)

@@ -71,11 +71,16 @@ def render_dense_3dgs(
     background: torch.Tensor,  # (C_color,)
     sh_degree: Optional[int] = None,
     render_mode: str = "RGB",
+    means2d_probe: Optional[torch.Tensor] = None,
 ):
-    """Returns (render (H, W, C), alphas (H, W, 1), info dict)."""
+    """Returns (render (H, W, C), alphas (H, W, 1), info dict).
+    Differentiable under autograd; `means2d_probe` (N, 2), when given, is
+    added to the projected means (the JAX oracle's `means2d_override`)."""
     if render_mode not in ("RGB", "RGB+D", "RGB+ED"):
         raise ValueError(f"Unknown render_mode: {render_mode}")
     proj = project_3dgs(means, quats, scales, viewmat, K, width, height)
+    if means2d_probe is not None:
+        proj = proj._replace(means2d=proj.means2d + means2d_probe)
     cam_pos = torch.linalg.inv(viewmat)[:3, 3]
     rgb = _sh_colors(colors, sh_degree, means, cam_pos)
 

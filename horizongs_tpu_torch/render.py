@@ -1,10 +1,19 @@
-"""Render layer: camera + model -> output dict, the serving entry point.
+"""Render layer: camera + model -> output dict, the entry point of serving
+and of the training step.
 
 LOD anchor mask -> optional frustum prefilter -> neural-gaussian decode ->
-3DGS rasterization, through the K1 CUDA kernel (`rasterizer="cuda"`, the
-counterpart of the JAX package's Pallas path) or the dense oracle
-(`"dense"`). Images are HWC float32 on the model's device. This slice is
-forward only: render under `torch.no_grad()`.
+3DGS rasterization, through the K1/K2 CUDA kernels (`rasterizer="cuda"`,
+the counterpart of the JAX package's Pallas path) or the dense oracle
+(`"dense"`). Images are HWC float32 on the model's device. The render is
+differentiable in the model's tensors (K2 carries the gradient through
+the compositor); serve under `torch.no_grad()`, where nothing is kept for
+a backward pass.
+
+`means2d_probe` is the handle for the screen-space gradients the
+densification statistics need (the JAX package's argument of the same
+name, in place of torch's `means2d.retain_grad()`): pass a zero (C*k, 2)
+tensor that requires grad, and after the backward its `.grad` is the
+gradient of the loss with respect to the projected means.
 """
 from __future__ import annotations
 
@@ -69,11 +78,13 @@ def render(cam: Camera,
            background: torch.Tensor,
            add_prefilter: bool = True,
            rasterizer: str = "cuda",
-           instance_cap: Optional[int] = None) -> dict:
+           instance_cap: Optional[int] = None,
+           means2d_probe: Optional[torch.Tensor] = None) -> dict:
     """`instance_cap`: the (gaussian, tile) instance capacity of the cuda
     path (default max(4N, G)); calibrate it with `count_render_instances`
     and `ops.raster_cuda.suggest_instance_cap`. Overflow is counted, never
-    silent (`pkg["n_dropped"]`)."""
+    silent (`pkg["n_dropped"]`). `means2d_probe`: see the module
+    docstring."""
     _require_3dgs(cfg)
     dec = decode_view(cam, cfg, mlps, state, add_prefilter)
     colors = dec.colors
@@ -86,10 +97,11 @@ def render(cam: Camera,
     if rasterizer == "cuda":
         out, alphas, info = rasterize_cuda_3dgs(
             *args, sh_degree=sh_degree, render_mode=cfg.render_mode,
-            cap=instance_cap)
+            cap=instance_cap, means2d_probe=means2d_probe)
     elif rasterizer == "dense":
         out, alphas, info = render_dense_3dgs(
-            *args, sh_degree=sh_degree, render_mode=cfg.render_mode)
+            *args, sh_degree=sh_degree, render_mode=cfg.render_mode,
+            means2d_probe=means2d_probe)
     else:
         raise ValueError(f"Unknown rasterizer: {rasterizer}")
 

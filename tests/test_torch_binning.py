@@ -12,6 +12,10 @@ from horizongs_tpu.ops import binning as jb
 from horizongs_tpu.ops.projection import project_3dgs
 from horizongs_tpu_torch.ops import binning as tb
 
+# small shapes: one torch thread per test worker process, so parallel
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 W, H, TILE = 96, 80, 32
 
 

@@ -12,6 +12,10 @@ from horizongs_tpu_torch.core import sh as tsh
 from horizongs_tpu_torch.core import transforms as ttf
 from horizongs_tpu_torch.data import synthetic as tsyn
 
+# small shapes: one torch thread per test worker process, so parallel
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a))
@@ -63,3 +67,23 @@ def test_cameras_identical():
                             device="cpu")
     np.testing.assert_array_equal(tl.viewmat.numpy(), np.asarray(jl.viewmat))
     np.testing.assert_array_equal(tl.K.numpy(), np.asarray(jl.K))
+
+
+def test_transform_grads_match():
+    """`normalize_quat` and `quat_to_rotmat` under autograd against
+    `jax.grad`, with a seeded cotangent."""
+    import jax
+    rng = np.random.default_rng(1)
+    q = rng.normal(size=(129, 4)).astype(np.float32)
+    r_n = rng.normal(size=(129, 4)).astype(np.float32)
+    r_r = rng.normal(size=(129, 3, 3)).astype(np.float32)
+
+    def j_loss(q):
+        return (jnp.sum(jtf.normalize_quat(q) * r_n)
+                + jnp.sum(jtf.quat_to_rotmat(q) * r_r))
+
+    want = np.asarray(jax.grad(j_loss)(jnp.asarray(q)))
+    qt = _t(q).requires_grad_(True)
+    ((ttf.normalize_quat(qt) * _t(r_n)).sum()
+     + (ttf.quat_to_rotmat(qt) * _t(r_r)).sum()).backward()
+    np.testing.assert_allclose(qt.grad.numpy(), want, atol=1e-5, rtol=1e-5)

@@ -13,6 +13,10 @@ from horizongs_tpu_torch.convert import anchor_state_from_numpy, mlps_from_numpy
 from horizongs_tpu_torch.models import anchors as tanc
 from horizongs_tpu_torch.models.config import ModelConfig as TConfig
 
+# small shapes: one torch thread per test worker process, so parallel
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 CFG = dict(name="GaussianLoDModel", feat_dim=16, n_offsets=5, view_dim=3,
            voxel_size=0.1, fork=2, aerial_levels=3, street_levels=4,
            standard_dist=3.0)
@@ -134,3 +138,60 @@ def test_init_mlps_seeded_bounds():
         assert float(a.cov.b1.abs().max()) <= 1 / np.sqrt(19)
         assert float(a.cov.w2.abs().max()) <= np.sqrt(3.0 / 16)
     assert a.appearance.shape == (2, 4)
+
+
+@pytest.mark.parametrize("overrides", [{}, {"dist2level": "progressive"},
+                                       {"appearance_dim": 4}],
+                         ids=["flagship", "progressive", "appearance"])
+def test_decode_grads_match(overrides):
+    """LOD mask + decode + the three MLPs under autograd against
+    `jax.grad`: a seeded cotangent on every decoded output, gradients
+    w.r.t. the anchor tables and every MLP weight within 2e-4 x each
+    tensor's max |grad| (the progressive fade carries the anchors'
+    gradient through the LOD distance too)."""
+    jcfg, tcfg = _pair(**overrides)
+    js, ts = _noisy_state(jcfg)
+    jm = j_init_mlps(jax.random.PRNGKey(3), jcfg.feat_dim, jcfg.view_dim,
+                     jcfg.appearance_dim, jcfg.n_offsets, jcfg.color_dim,
+                     num_cameras=3)
+    tm = mlps_from_numpy(**_to_numpy(jm._asdict()), device="cpu")
+    center = np.array([0.5, -2.0, -1.0], np.float32)
+    fields = ("means", "quats", "scales", "opacities", "colors")
+    tables = ("anchor", "offset", "feat", "scaling_log")
+    rng = np.random.default_rng(5)
+    ck = js.capacity * jcfg.n_offsets
+    cots = {f: rng.normal(size=(ck, d)).astype(np.float32)
+            for f, d in zip(fields, (3, 4, 3, 1, jcfg.color_dim))}
+
+    def j_loss(tabs, mlps):
+        st = js._replace(**dict(zip(tables, tabs)))
+        mask, smooth = janc.anchor_lod_mask(jcfg, st, jnp.asarray(center))
+        d = janc.decode_neural_gaussians(jcfg, mlps, st, jnp.asarray(center),
+                                         mask, smooth,
+                                         appearance_id=jnp.asarray(2))
+        return sum(jnp.sum(getattr(d, f).reshape(ck, -1) * cots[f])
+                   for f in fields)
+
+    gj_tabs, gj_mlps = jax.grad(j_loss, argnums=(0, 1))(
+        tuple(getattr(js, f) for f in tables), jm)
+    tt = {f: getattr(ts, f).clone().requires_grad_(True) for f in tables}
+    st = ts._replace(**tt)
+    mask, smooth = tanc.anchor_lod_mask(tcfg, st, torch.from_numpy(center))
+    d = tanc.decode_neural_gaussians(tcfg, tm, st, torch.from_numpy(center),
+                                     mask, smooth, appearance_id=2)
+    sum((getattr(d, f).reshape(ck, -1) * torch.from_numpy(cots[f])).sum()
+        for f in fields).backward()
+    pairs = [(f, tt[f].grad, g) for f, g in zip(tables, gj_tabs)]
+    for head in ("opacity", "cov", "color"):
+        mod, jd = getattr(tm, head), getattr(gj_mlps, head)
+        for i, l in ((1, "l1"), (2, "l2")):
+            for q in ("w", "b"):
+                pairs.append((f"{head}.{l}.{q}", getattr(mod, f"{q}{i}").grad,
+                              jd[l][q]))
+    if jcfg.appearance_dim:
+        pairs.append(("appearance", tm.appearance.grad, gj_mlps.appearance))
+    for name, got, want in pairs:
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert scale > 0, name
+        assert np.abs(got.numpy() - want).max() <= 2e-4 * scale, name

@@ -10,6 +10,10 @@ from horizongs_tpu.ops.projection import project_3dgs as j_project
 from horizongs_tpu_torch.data.synthetic import lookat_camera as t_lookat
 from horizongs_tpu_torch.ops.projection import project_3dgs as t_project
 
+# small shapes: one torch thread per test worker process, so parallel
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _inputs(n=600, seed=0):
     rng = np.random.default_rng(seed)
@@ -49,3 +53,41 @@ def test_project_3dgs_matches(size):
     assert (err <= 1e-5 * np.abs(jcon) + 1e-5 * scale).all(), err.max()
     np.testing.assert_allclose(tp.depths.numpy(), np.asarray(jp.depths),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_project_3dgs_grads_match():
+    """Under autograd, against `jax.grad`: a seeded cotangent on the live
+    gaussians' means2d and conics and on every depth, gradients w.r.t.
+    means, quats and scales within 1e-4 x each column's max |grad|. (The
+    cull mask feeds `torch.where` in the graph, so it is combined out of
+    place: updated in place, it made this backward raise.)"""
+    import jax
+    w, h = 64, 64
+    means, quats, scales = _inputs(n=300, seed=1)
+    jc = j_lookat(width=w, height=h, eye=(0, 0, -4))
+    tc = t_lookat(width=w, height=h, eye=(0, 0, -4), device="cpu")
+    live = np.asarray(j_project(jnp.asarray(means), jnp.asarray(quats),
+                                jnp.asarray(scales), jc.viewmat, jc.K, w,
+                                h).radii) > 0
+    rng = np.random.default_rng(2)
+    r_m = rng.normal(size=(300, 2)).astype(np.float32) * live[:, None]
+    r_c = rng.normal(size=(300, 3)).astype(np.float32) * live[:, None]
+    r_d = rng.normal(size=300).astype(np.float32)
+
+    def j_loss(m, q, s):
+        p = j_project(m, q, s, jc.viewmat, jc.K, w, h)
+        return (jnp.sum(p.means2d * r_m) + jnp.sum(p.conics * r_c)
+                + jnp.sum(p.depths * r_d))
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(
+        jnp.asarray(means), jnp.asarray(quats), jnp.asarray(scales))
+    ts = [torch.from_numpy(a).requires_grad_(True)
+          for a in (means, quats, scales)]
+    p = t_project(*ts, tc.viewmat, tc.K, w, h)
+    ((p.means2d * torch.from_numpy(r_m)).sum()
+     + (p.conics * torch.from_numpy(r_c)).sum()
+     + (p.depths * torch.from_numpy(r_d)).sum()).backward()
+    for name, t, wj in zip(("means", "quats", "scales"), ts, want):
+        wj = np.asarray(wj)
+        err = np.abs(t.grad.numpy() - wj).max(axis=0)
+        assert (err <= 1e-4 * np.abs(wj).max(axis=0)).all(), (name, err)

@@ -20,6 +20,10 @@ from horizongs_tpu_torch.models.config import ModelConfig
 from horizongs_tpu_torch.render import count_render_instances as t_count
 from horizongs_tpu_torch.render import render as t_render
 
+# small shapes: one torch thread per test worker process, so parallel
+# workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def flagship():
