@@ -6,30 +6,47 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper card
 and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
 
-  1. device  the card's name and power limit (nvidia-smi)
-  2. build   K1 (`csrc/raster3d_fwd.cu`) and K2 (`csrc/raster3d_bwd.cu`)
-             with nvcc, one process each started together, timed
-  3. kernel  K1 and K2 against their plain PyTorch versions on a seeded
-             256x256 scene with a saturated stack, duplicate means and
-             empty tiles (K2 with seeded cotangents; gaussians no pixel
-             walked must get exact zeros)
-  4. serve   the flagship LOD model (random weights from a seed) answers
-             8 requests at 1920x1088 through `render(rasterizer="cuda")`;
-             K1 must be launched once per request and K2 never, outputs
-             finite, nothing dropped; the device time of each layer and one
-             profiled request; one 256x256 view against the dense oracle;
-             K1 against its plain version on the inputs of a 1080p request,
-             timed, beside its bound
-  5. train   the same model takes 2 warm-up and 20 timed training steps at
-             1920x1088 (`build_train_step(rasterizer="cuda")`) towards a
-             render of the model with other features; K1 and K2 must be
-             launched once per step, the loss finite and lower at the end,
-             parameters and moments finite, statistics gathered, nothing
-             dropped; the device time of forward, backward and update, and
-             one profiled step; K2 against its plain version on the inputs
-             and cotangents of the first timed step, timed, beside its bound
-  6. report  per-view and per-step timings, the layer breakdowns, the
-             kernels line, and last the device line
+  1. device    the card's name and power limit (nvidia-smi)
+  2. build     K1 (`csrc/raster3d_fwd.cu`), K2 (`csrc/raster3d_bwd.cu`), K3
+               (`csrc/raster2d_fwd.cu`) and K4 (`csrc/raster2d_bwd.cu`) with
+               nvcc, one process each started together, timed, with
+               ptxas's registers, shared memory and spills
+  3. kernel    K1 and K2 against their plain PyTorch versions on a seeded
+               256x256 scene with a saturated stack, duplicate means and
+               empty tiles; K3 and K4 on the same scene as surfels plus
+               surfels nearly edge-on to the view (|k_z| near 0, hits at
+               z <= 0.01) and a faint patch (pixels that never cross
+               T = 0.5); the backward kernels with seeded cotangents on
+               every output, and gaussians no pixel walked must get exact
+               zeros
+  4. serve     the flagship LOD model (random weights from a seed) answers
+               8 requests at 1920x1088 through `render(rasterizer="cuda")`;
+               K1 must be launched once per request and K2-K4 never,
+               outputs finite, nothing dropped; the device time of each
+               layer and one profiled request; one 256x256 view against the
+               dense oracle; K1 against its plain version on the inputs of
+               a 1080p request, timed, beside its bound
+  5. serve 2D  the same model as surfels (`gs_attr="2D"`) answers 4 of
+               those requests: K3 once per request and no other kernel,
+               every output (render, depth, alphas, normals, normals from
+               depth, distortion, median depth) finite, nothing dropped;
+               the layers, one profiled request, a 256x256 view against the
+               2DGS dense oracle, and K3 against its plain version on the
+               first request's inputs, timed, beside its bound
+  6. train     2 warm-up and 20 timed training steps at 1920x1088
+               (`build_train_step(rasterizer="cuda")`) towards a render of
+               the model with other features; K1 and K2 must be launched
+               once per step and K3, K4 never, the loss finite and lower at
+               the end, parameters and moments finite, statistics gathered,
+               nothing dropped; the device time of forward, backward and
+               update, and one profiled step; K2 against its plain version
+               on the inputs and cotangents of the first timed step, timed,
+               beside its bound
+  7. train 2D  the same for the surfel model with the normal and
+               distortion losses on from the first step: K3 and K4 once per
+               step, K4 against its plain version at 1080p
+  8. report    per-view and per-step timings, the layer breakdowns, the
+               kernels line, and last the device line
 
 Prints nothing after a failure and exits non-zero without a card or
 without the package beside it.
@@ -54,6 +71,17 @@ FP32_OPS_PER_PAIR = 15      # K1's arithmetic per pixel-gaussian pair
 K2_SFU_WALKED, K2_SFU_CONTRIB = 1, 3
 K2_FP32_WALKED, K2_FP32_CONTRIB = 16, 40
 K2_TOL = 2e-4               # per field, times that field's max |grad|
+# K3 per walked pair: an exp (alpha), the reciprocal of each IEEE division
+# (u, v; counted once) and ~50 FP32 operations; per pair that contributes a
+# log1p and an exp (T) more and ~30 FP32 operations
+# (csrc/raster2d_fwd.cu, "What bounds it")
+K3_SFU_WALKED, K3_SFU_CONTRIB = 2, 2
+K3_FP32_WALKED, K3_FP32_CONTRIB = 50, 30
+# K4 per walked pair: K3's intersection; per pair that contributes a
+# log1p, an exp, 1/(1 - alpha) and 1/kz more and ~140 FP32 operations
+# (csrc/raster2d_bwd.cu)
+K4_SFU_WALKED, K4_SFU_CONTRIB = 2, 4
+K4_FP32_WALKED, K4_FP32_CONTRIB = 50, 140
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 
 
@@ -221,6 +249,324 @@ def _kernel_scene(dev):
         [g[k], stack[k], dup[k]]).astype(np.float32)).to(dev) for k in g}
 
 
+def _surfel_scene(dev):
+    """`_kernel_scene` (a cloud, a saturated stack, duplicate means, empty
+    border tiles) as surfels, plus the cases K3 and K4 branch on: 200
+    surfels within a tenth of a degree of edge-on to the view (|k_z| near
+    0 where a ray runs along the plane, hits near or behind the camera,
+    z <= 0.01, where it crosses it; the screen-space low-pass gives their
+    alpha) and a faint patch of 24 (pixels that never cross T = 0.5)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(11)
+
+    def block(means, angles, scales, opacities):
+        n = len(means)
+        half = np.asarray(angles) / 2
+        quats = np.stack([np.cos(half), np.sin(half), np.zeros(n),
+                          np.zeros(n)], axis=1)          # about the x axis
+        return {"means": means, "quats": quats,
+                "scales": np.repeat(np.asarray(scales)[:, None], 3, axis=1),
+                "opacities": np.asarray(opacities),
+                "colors": rng.uniform(0, 1, (n, 3))}
+
+    n = 200
+    edge_on = block(np.stack([rng.uniform(-0.6, 0.6, n),
+                              rng.uniform(-0.02, 0.02, n),
+                              rng.uniform(-0.5, 0.5, n)], axis=1),
+                    np.radians(90 + rng.uniform(-0.1, 0.1, n)),
+                    rng.uniform(0.1, 0.2, n), np.full(n, 0.9))
+    faint = block(np.stack([rng.uniform(1.2, 1.6, 24),
+                            rng.uniform(1.2, 1.6, 24),
+                            rng.uniform(-0.2, 0.2, 24)], axis=1),
+                  rng.uniform(0, np.pi, 24), rng.uniform(0.1, 0.2, 24),
+                  np.full(24, 0.1))
+    base = {k: v.cpu().numpy() for k, v in _kernel_scene("cpu").items()}
+    return {k: torch.from_numpy(np.concatenate(
+        [base[k], edge_on[k], faint[k]]).astype(np.float32)).to(
+            dev) for k in base}
+
+
+def _surfel_cases(fields, gauss_id, tile_starts, n_tiles_x, acc, rec):
+    """What a K3/K4 comparison covered: walked pairs with alpha >= 1/255
+    through the screen-space low-pass (no 3D hit), of those the ones with
+    |k_z| below 1% of |k| (the ray within 0.6 degrees of the plane), pairs
+    cut only by the hit
+    depth z <= 0.01, and pixels with alpha > 0 that never cross T = 0.5."""
+    import torch
+    from horizongs_tpu_torch.ops import raster2d
+    lx, ly = raster2d.local_pixel_coords(fields.device)
+    starts = tile_starts.tolist()
+    low_pass = edge_on = behind = 0
+    for t in range(len(starts) - 1):
+        s, e = starts[t], starts[t + 1]
+        if e == s:
+            continue
+        geo = raster2d.segment_geometry(fields[gauss_id[s:e].long()], t,
+                                        n_tiles_x, lx, ly)
+        walked = (torch.arange(e - s, device=fields.device)[None, :]
+                  < rec[t, 0][:, None])
+        hit = walked & (geo["alpha"] > 0)
+        kx, ky = geo["u"] * geo["kzs"], geo["v"] * geo["kzs"]
+        k = torch.sqrt(kx * kx + ky * ky + geo["kzs"] * geo["kzs"])
+        low_pass += int((hit & ~geo["use3d"]).sum())
+        edge_on += int((hit & (geo["kzs"].abs() < 1e-2 * k)).sum())
+        alpha = torch.clamp_max(geo["raw"], 0.999)
+        behind += int((walked & (alpha >= 1 / 255)
+                       & (geo["z"] <= 0.01)).sum())
+    never = int(((rec[:, 1] < 0) & (acc[:, 6] > 0)).sum())
+    return {"low_pass_pairs": low_pass, "edge_on_pairs": edge_on,
+            "pairs_cut_by_z": behind, "pixels_never_crossing_half": never}
+
+
+def _compare_k3(kern, plain, atol, k_args):
+    """Max errors of K3 against its plain version, and the tolerance check:
+    the acc rows (rgb, normal, alpha) within `atol`; D within `atol` + rtol
+    2e-4; the distortion within `atol` + 2e-4 x (|distortion| + D) (its
+    terms are of the size of D, summed in other orders); exp(log T) atol
+    1e-4; the median depth equal where both name the same surfel; n_contrib
+    and the median's position equal or at a boundary that rounding moves
+    (`raster2d.records_off_the_boundary`)."""
+    import torch
+    from horizongs_tpu_torch.ops.raster2d import records_off_the_boundary
+    (acc_k, aux_k, rec_k), (acc_p, aux_p, rec_p) = kern, plain
+    err_acc = (acc_k - acc_p).abs().max().item()
+    D_p = aux_p[:, 1].abs()
+    d_err = (aux_k[:, 1] - aux_p[:, 1]).abs()
+    x_err = (aux_k[:, 2] - aux_p[:, 2]).abs()
+    err_T = (torch.exp(aux_k[:, 0]) - torch.exp(aux_p[:, 0])).abs().max().item()
+    same = rec_k[:, 1] == rec_p[:, 1]
+    med_err = (aux_k[:, 3] - aux_p[:, 3]).abs()[same].max().item()
+    off = records_off_the_boundary(*k_args[:4], rec_k, aux_k[:, 0], rec_p,
+                                   aux_p[:, 0])
+    ok = (err_acc <= atol and bool((d_err <= atol + 2e-4 * D_p).all())
+          and bool((x_err <= atol + 2e-4 * (aux_p[:, 2].abs() + D_p)).all())
+          and err_T <= 1e-4 and med_err <= atol and off == (0, 0))
+    return ok, {"acc": err_acc, "D": d_err.max().item(),
+                "distortion": x_err.max().item(), "T": err_T,
+                "median_same_surfel": med_err,
+                "n_contrib_mismatched_pixels":
+                    int((rec_k[:, 0] != rec_p[:, 0]).sum()),
+                "median_mismatched_pixels": int((~same).sum()),
+                "records_off_the_boundary": list(off)}
+
+
+def _pair_counts_2d(fields, gauss_id, tile_starts, n_tiles_x, rec):
+    """Pixel-surfel pairs this data needs: walked (each pixel's segment up
+    to its stop, K3's work) and, of those, the pairs with alpha > 0 (the
+    ones K3 composites and K4 differentiates)."""
+    import torch
+    from horizongs_tpu_torch.ops.raster2d import (
+        local_pixel_coords, segment_geometry)
+    lx, ly = local_pixel_coords(fields.device)
+    starts = tile_starts.tolist()
+    contrib = torch.zeros((), dtype=torch.int64, device=fields.device)
+    for t in range(len(starts) - 1):
+        s, e = starts[t], starts[t + 1]
+        if e == s:
+            continue
+        alpha = segment_geometry(fields[gauss_id[s:e].long()], t, n_tiles_x,
+                                 lx, ly)["alpha"]
+        walked = (torch.arange(e - s, device=fields.device)[None, :]
+                  < rec[t, 0][:, None])
+        contrib += (walked & (alpha > 0)).sum()
+    return int(rec[:, 0].sum()), int(contrib)
+
+
+def _counts(kernels):
+    return tuple(k.launches for k in kernels)
+
+
+def _reset(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def _serve(cams, cfg, mlps, state, bg, cap, build, fwd, kernels, expect):
+    """Requests through `render(rasterizer="cuda")`, each timed on the host
+    clock after one warm-up pass, with every kernel's count set to 0 just
+    before and read just after (they must equal `expect`); all outputs
+    finite, nothing dropped; then the device time of each layer (CUDA
+    events around decode, projection + binning (`build`) and the forward
+    kernel (`fwd`)) and one profiled request."""
+    import torch
+    from horizongs_tpu_torch.render import decode_view, render
+    W, H = cams[0].width, cams[0].height
+    for c in cams:                                   # warm-up
+        render(c, cfg, mlps, state, bg, instance_cap=cap)
+    torch.cuda.synchronize()
+    _reset(kernels)
+    view_ms, pkgs = [], []
+    for c in cams:
+        t0 = time.perf_counter()
+        pkg = render(c, cfg, mlps, state, bg, rasterizer="cuda",
+                     instance_cap=cap)
+        torch.cuda.synchronize()
+        view_ms.append((time.perf_counter() - t0) * 1e3)
+        pkgs.append(pkg)
+    launches = _counts(kernels)
+    _require(launches == expect,
+             f"K1-K4 launched {launches} times for {len(cams)} requests "
+             f"of gs_attr {cfg.gs_attr}, expected {expect}")
+    for pkg in pkgs:
+        _require(pkg["render"].shape == (H, W, 3), "render shape")
+        for key, x in pkg.items():
+            if key.startswith("render") and x is not None:
+                _require(bool(torch.isfinite(x).all()), f"{key} finite")
+        _require(int(pkg["n_dropped"]) == 0, "instances dropped")
+    stages = {"decode": [], "project_bin": [], "kernel": []}
+    for c in cams:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        dec = decode_view(c, cfg, mlps, state)
+        ev[1].record()
+        ri = build(dec.means, dec.quats, dec.scales, dec.opacities,
+                   dec.colors, c.viewmat, c.K, W, H, cap=cap)
+        ev[2].record()
+        fwd(ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
+            ri.grid.n_tiles_x, ri.grid.n_tiles_y)
+        ev[3].record()
+        ev[3].synchronize()
+        for i, k in enumerate(stages):
+            stages[k].append(ev[i].elapsed_time(ev[i + 1]))
+    prof = _device_profile(
+        lambda: render(cams[0], cfg, mlps, state, bg, instance_cap=cap))
+    return {"view_ms": view_ms, "pkgs": pkgs, "launches": launches,
+            "stages": stages, "prof": prof}
+
+
+def _train(cfg, opt, state, mlps, cam, bg, cap, live, bwd_name, kernels,
+           expect):
+    """2 warm-up and 20 timed steps of `build_train_step(cfg, opt)` at the
+    camera's size towards the model rendered with feat from seed 1, each
+    timed on the host clock, with every kernel's count set to 0 just before
+    the timed steps and read after (they must equal `expect` per step).
+    The loss must be finite and lower at the end, parameters and moments
+    finite, statistics gathered, nothing dropped. The backward wrapper
+    `raster_cuda.<bwd_name>`'s inputs in the first timed step are copied in
+    an untimed forward and backward of that step's state and iteration.
+    Then the device time of forward, backward and update and one profiled
+    step. The decoders are copied: a step updates them in place."""
+    import copy
+    import torch
+    from horizongs_tpu_torch.ops import raster_cuda
+    from horizongs_tpu_torch.ops.raster_cuda import suggest_instance_cap
+    from horizongs_tpu_torch.render import count_render_instances, render
+    from horizongs_tpu_torch.train.step import (
+        build_train_step, camera_tensors, init_train_state)
+    n_warm, n_steps = 2, 20
+    feat1 = torch.randn(state.feat.shape,
+                        generator=torch.Generator().manual_seed(1)) * live
+    target_state = state._replace(feat=feat1.to(state.feat.device))
+    with torch.no_grad():
+        cap_t = suggest_instance_cap(count_render_instances(
+            cam, cfg, mlps, target_state), margin=1.15)
+        target = render(cam, cfg, mlps, target_state, bg,
+                        instance_cap=cap_t)["render"]
+    step = build_train_step(cfg, opt, cam.height, cam.width,
+                            add_prefilter=True, rasterizer="cuda",
+                            instance_cap=cap)
+    ts = init_train_state(state, copy.deepcopy(mlps))
+    ct = camera_tensors(cam, image=target, do_stats=True)
+    losses, step_ms, dropped = [], [], []
+    it = 0
+    for _ in range(n_warm):
+        it += 1
+        ts, m = step(ts, ct, it)
+        losses.append(float(m["loss"]))
+        dropped.append(int(m["n_dropped"]))
+    captured = []
+    bwd = getattr(raster_cuda, bwd_name)
+
+    def capture(*args):
+        captured.append(tuple(a.detach().clone() if torch.is_tensor(a)
+                              else a for a in args))
+        return bwd(*args)
+
+    setattr(raster_cuda, bwd_name, capture)
+    try:
+        step.value_and_grad(ts, ct, float(it + 1))
+    finally:
+        setattr(raster_cuda, bwd_name, bwd)
+    _require(len(captured) == 1,
+             f"{bwd_name} called {len(captured)} times in a step")
+    torch.cuda.synchronize()
+
+    _reset(kernels)
+    for _ in range(n_steps):
+        it += 1
+        t0 = time.perf_counter()
+        ts, m = step(ts, ct, it)
+        loss = float(m["loss"])                       # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        dropped.append(int(m["n_dropped"]))
+    launches = _counts(kernels)
+    _require(launches == tuple(n_steps * e for e in expect),
+             f"K1-K4 launched {launches} times in {n_steps} steps of "
+             f"gs_attr {cfg.gs_attr}")
+    _require(all(math.isfinite(x) for x in losses), f"loss {losses}")
+    _require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    _require(max(dropped) == 0, f"instances dropped: {dropped}")
+    for name, group in ts.params.groups().items():
+        for i, t in enumerate(group):
+            for what, x in (("param", t), ("mu", ts.opt.mu[name][i]),
+                            ("nu", ts.opt.nu[name][i])):
+                _require(bool(torch.isfinite(x).all()),
+                         f"{what} {name}[{i}] finite")
+    _require(float(ts.stats.anchor_demon.sum()) > 0
+             and float(ts.stats.offset_denom.sum()) > 0,
+             "densification statistics gathered")
+    last_metrics = {k: float(v) for k, v in m.items()}
+
+    split = {"forward": [], "backward": [], "update": []}
+    for _ in range(4):
+        it += 1
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss_t, aux, pkg, probe = step.forward(ts, ct, it)
+        ev[1].record()
+        grads, probe_grad = step.backward(ts, loss_t, probe)
+        ev[2].record()
+        ts, m = step.update(ts, ct, it, loss_t.detach(), aux, pkg, grads,
+                            probe_grad)
+        ev[3].record()
+        ev[3].synchronize()
+        for i, k in enumerate(split):
+            split[k].append(ev[i].elapsed_time(ev[i + 1]))
+    box = [ts]
+
+    def one_step():
+        box[0], _ = step(box[0], ct, it + 1)
+    prof = _device_profile(one_step)
+    return {"losses": losses, "step_ms": step_ms, "launches": launches,
+            "last_metrics": last_metrics, "split": split, "prof": prof,
+            "captured": captured[0], "n_steps": n_steps, "n_warm": n_warm}
+
+
+def _slice_report(name, card, tr, cap):
+    p = tr["prof"]
+    return {"slice": name, "card": card, "steps": tr["n_steps"],
+            "warmup_steps": tr["n_warm"], "step_ms": tr["step_ms"],
+            "step_ms_p50": _median(tr["step_ms"]),
+            "step_ms_min": min(tr["step_ms"]),
+            "step_ms_max": max(tr["step_ms"]), "losses": tr["losses"],
+            "last_metrics": tr["last_metrics"], "instance_cap": cap,
+            "stages_ms_p50": {k: _median(v) for k, v in tr["split"].items()},
+            "profiled_step": {"wall_ms": p[0], "device_busy_ms": p[1],
+                              "device_idle_share": 1 - p[1] / p[0],
+                              "top_kernels_ms": p[2]}}
+
+
+def _serve_report(sv, card):
+    p = sv["prof"]
+    return {"stages_ms_p50": {k: _median(v) for k, v in sv["stages"].items()},
+            "profiled_request": {"wall_ms": p[0], "device_busy_ms": p[1],
+                                 "device_idle_share": 1 - p[1] / p[0],
+                                 "top_kernels_ms": p[2]},
+            "card": card}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -241,14 +587,15 @@ def main() -> int:
     from horizongs_tpu_torch.models.anchors import init_anchor_state_from_points
     from horizongs_tpu_torch.models.config import ModelConfig
     from horizongs_tpu_torch.models.mlp import init_mlps
-    from horizongs_tpu_torch.ops import raster3d, raster_cuda
+    from horizongs_tpu_torch.ops import raster2d, raster3d, raster_cuda
     from horizongs_tpu_torch.ops.raster_cuda import (
-        build_raster_inputs, suggest_instance_cap)
+        build_raster_inputs, build_raster_inputs_2dgs, count_instances_2dgs,
+        suggest_instance_cap)
     from horizongs_tpu_torch.render import (
         count_render_instances, decode_view, render)
-    from horizongs_tpu_torch.train.step import (
-        build_train_step, camera_tensors, init_train_state)
     K1, K2 = raster3d.KERNEL, raster3d.KERNEL_BWD
+    K3, K4 = raster2d.KERNEL_2D, raster2d.KERNEL_2D_BWD
+    ALL = (K1, K2, K3, K4)
 
     # 1. device --------------------------------------------------------------
     card = _smi("name,power.limit")
@@ -256,22 +603,24 @@ def main() -> int:
     sm_clock_hz = float(_smi("clocks.max.sm").split()[0]) * 1e6
     dev = torch.device("cuda", 0)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    sfu_rate = SFU_OPS_PER_SM_CLK * n_sm * sm_clock_hz
+    fp32_rate = FP32_OPS_PER_SM_CLK * n_sm * sm_clock_hz
     disable_tf32()
-    torch.set_grad_enabled(False)   # serving is forward only; 5. turns it on
+    torch.set_grad_enabled(False)   # serving is forward only; 6. turns it on
 
     # 2. build: one nvcc per source, started together ---------------------
-    names = ["raster3d_fwd", "raster3d_bwd"]
+    names = ["raster3d_fwd", "raster3d_bwd", "raster2d_fwd", "raster2d_bwd"]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         built = dict(zip(names, pool.map(kernels.build, names)))
-    print(f"build K1 + K2: {time.perf_counter() - t0:.2f} s")
+    print(f"build K1-K4: {time.perf_counter() - t0:.2f} s")
     for name, b in built.items():
         print(f"build {name}: {b.seconds:.2f} s -> {b.path.name}")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
-    # 3. kernels vs plain on a small scene -----------------------------------
+    # 3a. K1, K2 vs plain on a small scene -----------------------------------
     g = _kernel_scene(dev)
     cam = lookat_camera(width=256, height=256, eye=(0, 0, -4), device=dev)
     ri = build_raster_inputs(g["means"], g["quats"], g["scales"],
@@ -310,12 +659,56 @@ def main() -> int:
     _require(zeros_ok and n_unwalked > 0,
              "K2 wrote gradient for gaussians no pixel walked")
 
-    # 4. serving: flagship LOD model, 8 requests at 1920x1088 ----------------
-    W, H, n_views = 1920, 1088, 8
+    # 3b. K3, K4 vs plain on a small surfel scene ----------------------------
+    g = _surfel_scene(dev)
+    cap_k = suggest_instance_cap(int(count_instances_2dgs(
+        g["means"], g["quats"], g["scales"], g["opacities"], cam.viewmat,
+        cam.K, 256, 256)), margin=1.15)
+    ri = build_raster_inputs_2dgs(g["means"], g["quats"], g["scales"],
+                                  g["opacities"], g["colors"], cam.viewmat,
+                                  cam.K, 256, 256, cap=cap_k)
+    counts = ri.inst.tile_starts.diff()
+    _require(int(ri.inst.n_dropped) == 0, "instances dropped")
+    k_args = (ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
+              ri.grid.n_tiles_x, ri.grid.n_tiles_y)
+    kern = raster2d.rasterize2d_fwd(*k_args)
+    torch.cuda.synchronize()
+    ok, errs = _compare_k3(kern, raster2d.rasterize2d_fwd_plain(*k_args),
+                           2e-5, k_args)
+    cases = _surfel_cases(*k_args[:4], kern[0], kern[2])
+    cases["empty_tiles"] = int((counts == 0).sum())
+    cases["stopped_pixels"] = int((kern[1][:, 0] <= raster2d.LOG_T_EPS).sum())
+    print(f"K3 vs plain 256x256: {int(ri.inst.n_instances)} instances, "
+          f"cases {json.dumps(cases)}; errors {json.dumps(errs)}")
+    _require(ok, "K3 disagrees with its plain version")
+    _require(min(cases.values()) > 0, f"a case is missing: {cases}")
+    gen = torch.Generator().manual_seed(3)
+    n_tiles = ri.grid.n_tiles
+    d_acc = torch.randn((n_tiles, raster2d.N_ACC, raster2d.P),
+                        generator=gen).to(dev)
+    d_aux = torch.randn((n_tiles, raster2d.N_AUX, raster2d.P),
+                        generator=gen).to(dev)
+    b_args = (*k_args[:3], d_acc, d_aux, *kern, *k_args[3:])
+    grad_k = raster2d.rasterize2d_bwd(*b_args)
+    torch.cuda.synchronize()
+    ok, errs2 = _compare_k2(grad_k, raster2d.rasterize2d_bwd_plain(*b_args))
+    walked = _walked_mask(ri.fields.shape[0], *k_args[1:3], kern[2][:, 0])
+    n_unwalked = int((~walked).sum())
+    zeros_ok = bool((grad_k[~walked] == 0).all())
+    print(f"K4 vs plain 256x256: {int(walked.sum())} surfels walked, "
+          f"{n_unwalked} not (exact zeros: {zeros_ok}); errors "
+          f"{json.dumps(errs2)}")
+    _require(ok, "K4 disagrees with its plain version")
+    _require(zeros_ok and n_unwalked > 0,
+             "K4 wrote gradient for surfels no pixel walked")
+
+    # the flagship LOD model, 3DGS and 2DGS ---------------------------------
+    W, H, n_views, n_views_2d = 1920, 1088, 8, 4
     cfg = ModelConfig(name="GaussianLoDModel", feat_dim=32, n_offsets=10,
                       view_dim=3, color_attr="RGB", render_mode="RGB+ED",
                       voxel_size=0.02, fork=2, aerial_levels=2,
                       street_levels=4, standard_dist=8.0)
+    cfg2d = ModelConfig(**{**cfg.__dict__, "gs_attr": "2D"})
     pts = random_gaussians(20000, seed=0, extent=0.8,
                            scale_range=(0.01, 0.04))["means"]
     state = init_anchor_state_from_points(cfg, pts, device=dev)
@@ -331,58 +724,21 @@ def main() -> int:
                      cfg.n_offsets, cfg.color_dim, generator=gen, device=dev)
     cams = orbit_cameras(n_views, radius=3.5, height_z=-1.0, width=W,
                          height=H, device=dev)
+    cams2d = cams[::n_views // n_views_2d]
     bg = torch.zeros(3, device=dev)
-    n_inst = [count_render_instances(c, cfg, mlps, state) for c in cams]
-    cap = suggest_instance_cap(max(n_inst), margin=1.15)
-
-    for c in cams:                                   # warm-up
-        render(c, cfg, mlps, state, bg, instance_cap=cap)
-    torch.cuda.synchronize()
-    K1.launches = K2.launches = 0
-    view_ms, pkgs = [], []
-    for c in cams:
-        t0 = time.perf_counter()
-        pkg = render(c, cfg, mlps, state, bg, rasterizer="cuda",
-                     instance_cap=cap)
-        torch.cuda.synchronize()
-        view_ms.append((time.perf_counter() - t0) * 1e3)
-        pkgs.append(pkg)
-    serve_launches = (K1.launches, K2.launches)
-    _require(serve_launches == (n_views, 0),
-             f"K1, K2 launched {serve_launches} times for {n_views} requests")
-    for pkg in pkgs:
-        _require(pkg["render"].shape == (H, W, 3), "render shape")
-        for key in ("render", "render_depth", "render_alphas"):
-            _require(bool(torch.isfinite(pkg[key]).all()), f"{key} finite")
-        _require(int(pkg["n_dropped"]) == 0, "instances dropped")
-    alpha_mean = sum(float(p["render_alphas"].mean()) for p in pkgs) / n_views
-    p50 = _median(view_ms)
-
-    # where a request's time goes: device time of each layer (CUDA events
-    # around decode, projection + binning, K1), and one profiled request
-    stages = {"decode": [], "project_bin": [], "k1": []}
-    for c in cams:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        dec = decode_view(c, cfg, mlps, state)
-        ev[1].record()
-        ri = build_raster_inputs(dec.means, dec.quats, dec.scales,
-                                 dec.opacities, dec.colors, c.viewmat, c.K,
-                                 W, H, cap=cap)
-        ev[2].record()
-        raster3d.rasterize_fwd(ri.fields, ri.inst.gauss_id,
-                               ri.inst.tile_starts, ri.grid.n_tiles_x,
-                               ri.grid.n_tiles_y)
-        ev[3].record()
-        ev[3].synchronize()
-        for i, k in enumerate(stages):
-            stages[k].append(ev[i].elapsed_time(ev[i + 1]))
-    prof_wall, prof_busy, prof_top = _device_profile(
-        lambda: render(cams[0], cfg, mlps, state, bg, instance_cap=cap))
-
-    # one 256x256 view against the dense oracle
     small = orbit_cameras(1, radius=3.5, height_z=-1.0, width=256,
                           height=256, device=dev)[0]
+
+    # 4. serving 3DGS: 8 requests at 1920x1088 -------------------------------
+    n_inst = [count_render_instances(c, cfg, mlps, state) for c in cams]
+    cap = suggest_instance_cap(max(n_inst), margin=1.15)
+    sv = _serve(cams, cfg, mlps, state, bg, cap, build_raster_inputs,
+                raster3d.rasterize_fwd, ALL, (n_views, 0, 0, 0))
+    alpha_mean = sum(float(p["render_alphas"].mean())
+                     for p in sv.pop("pkgs")) / n_views
+    p50 = _median(sv["view_ms"])
+
+    # one 256x256 view against the dense oracle
     cap_s = suggest_instance_cap(
         count_render_instances(small, cfg, mlps, state), margin=1.15)
     out_c = render(small, cfg, mlps, state, bg, rasterizer="cuda",
@@ -410,8 +766,8 @@ def main() -> int:
     # the plain version's cumsum on the card sums log T in another order
     # than the kernel's walk, so over 2M pixels a gaussian at the T = 1e-4
     # stop may fall the other way: it is worth at most alpha * 1e-4
-    ok, errs = _compare_k1(kern, plain, 1e-4, k_args)
-    print(f"K1 vs plain 1920x1088: errors {json.dumps(errs)}")
+    ok, k1_errs = _compare_k1(kern, plain, 1e-4, k_args)
+    print(f"K1 vs plain 1920x1088: errors {json.dumps(k1_errs)}")
     _require(ok, "K1 disagrees with its plain version at 1080p")
     k1_ms = _time_ms(lambda: raster3d.rasterize_fwd(*k_args), 20)
     k1_plain_ms = _time_ms(lambda: raster3d.rasterize_fwd_plain(*k_args), 1)
@@ -423,122 +779,129 @@ def main() -> int:
     k1_bytes = (ri.fields.numel() * 4 + k1_inst * 4
                 + ri.inst.tile_starts.numel() * 4 + n_pix * 8 * 4)
     k1_bound_ms, k1_bound_by = _bound(
-        k1_bytes / HBM_BYTES_PER_S,
-        k1_pairs / (SFU_OPS_PER_SM_CLK * n_sm * sm_clock_hz),
-        k1_pairs * FP32_OPS_PER_PAIR / (FP32_OPS_PER_SM_CLK * n_sm
-                                        * sm_clock_hz))
+        k1_bytes / HBM_BYTES_PER_S, k1_pairs / sfu_rate,
+        k1_pairs * FP32_OPS_PER_PAIR / fp32_rate)
 
-    # 5. train: the same model, 2 + 20 steps at 1920x1088 -------------------
-    torch.set_grad_enabled(True)
-    n_warm, n_steps = 2, 20
-    # the target: the model rendered with other features (seed 1)
-    feat1 = torch.randn(state.feat.shape,
-                        generator=torch.Generator().manual_seed(1)) * live
-    target_state = state._replace(feat=feat1.to(dev))
-    cam_t = cams[0]
-    with torch.no_grad():
-        cap_t = suggest_instance_cap(count_render_instances(
-            cam_t, cfg, mlps, target_state), margin=1.15)
-        target = render(cam_t, cfg, mlps, target_state, bg,
-                        instance_cap=cap_t)["render"]
-    opt = make_optim(start_stat=0)
-    step = build_train_step(cfg, opt, H, W, add_prefilter=True,
-                            rasterizer="cuda", instance_cap=cap)
-    ts = init_train_state(state, mlps)
-    ct = camera_tensors(cam_t, image=target, do_stats=True)
-    losses, step_ms, dropped = [], [], []
-    it = 0
-    for _ in range(n_warm):
-        it += 1
-        ts, m = step(ts, ct, it)
-        losses.append(float(m["loss"]))
-        dropped.append(int(m["n_dropped"]))
-    # K2's inputs and cotangents in the first timed step, as its wrapper
-    # receives them: that step's forward and backward (its state and
-    # iteration, no update) run once untimed with the wrapper swapped for
-    # one that copies them; the timed steps run the module as it is
-    captured = []
-    bwd = raster_cuda.rasterize_bwd
+    # 5. serving 2DGS: 4 requests at 1920x1088 -------------------------------
+    n_inst2 = [count_render_instances(c, cfg2d, mlps, state) for c in cams2d]
+    cap2 = suggest_instance_cap(max(n_inst2), margin=1.15)
+    sv2 = _serve(cams2d, cfg2d, mlps, state, bg, cap2,
+                 build_raster_inputs_2dgs, raster2d.rasterize2d_fwd, ALL,
+                 (0, 0, n_views_2d, 0))
+    alpha_mean2 = sum(float(p["render_alphas"].mean())
+                      for p in sv2.pop("pkgs")) / n_views_2d
 
-    def capture(*args):
-        captured.append(tuple(a.detach().clone() if torch.is_tensor(a)
-                              else a for a in args))
-        return bwd(*args)
+    # one 256x256 view against the 2DGS dense oracle. The reference's 2DGS
+    # binning bounds a surfel by the circle of radius max(AABB half
+    # extents), which misses the ends of a disk seen tilted along a
+    # diagonal (they reach sqrt(hx^2 + hy^2)), so the cuda path is held to
+    # the oracle with every visible surfel binned into every tile: images,
+    # alphas and normals atol 2e-4, ED depth + rtol 2e-4, distortion
+    # 5e-4 + 2e-4 x (|dist| + D); the median off by more than 1e-4 + rtol
+    # 2e-4 on at most 0.05% of the pixels (a T = 0.5 crossing that the
+    # oracle's product and K3's log sum place on neighbouring surfels), and
+    # the normals from it within 5e-4 outside those pixels' 3x3
+    # neighbourhoods. The binned path's distance from the oracle is
+    # reported beside it.
+    out_d = render(small, cfg2d, mlps, state, bg, rasterizer="dense")
+    cull = raster_cuda._cull_radii
 
-    raster_cuda.rasterize_bwd = capture
+    def everywhere(proj, opacities, guard_px=0.0):
+        r = cull(proj, opacities, guard_px)
+        return torch.where(r > 0, torch.full_like(r, 1e6), r)
+
+    raster_cuda._cull_radii = everywhere
     try:
-        step.value_and_grad(ts, ct, float(it + 1))
+        n_all = count_render_instances(small, cfg2d, mlps, state)
+        out_c = render(small, cfg2d, mlps, state, bg, rasterizer="cuda",
+                       instance_cap=n_all)
     finally:
-        raster_cuda.rasterize_bwd = bwd
-    _require(len(captured) == 1, f"K2 called {len(captured)} times in a step")
+        raster_cuda._cull_radii = cull
+    _require(int(out_c["n_dropped"]) == 0, "instances dropped")
+    keys2 = ("render", "render_alphas", "render_depth", "render_normals",
+             "render_distort", "render_median_depth",
+             "render_normals_from_depth")
+    diff = {k: (out_c[k] - out_d[k]).abs() for k in keys2}
+    med_d = out_d["render_median_depth"]
+    med_off = (diff["render_median_depth"]
+               > 1e-4 + 2e-4 * med_d.abs())[..., 0]
+    near_off = torch.nn.functional.max_pool2d(
+        med_off[None, None].float(), 3, stride=1, padding=1)[0, 0] > 0
+    depth_sum = out_d["render_depth"] * out_d["render_alphas"]
+    dense2_ok = (
+        all(float(diff[k].max()) <= 2e-4 for k in
+            ("render", "render_alphas", "render_normals"))
+        and bool((diff["render_depth"]
+                  <= 2e-4 + 2e-4 * out_d["render_depth"].abs()).all())
+        and bool((diff["render_distort"] <= 5e-4 + 2e-4 * (
+            out_d["render_distort"].abs() + depth_sum)).all())
+        and int(med_off.sum()) <= 5e-4 * med_off.numel()
+        and float(diff["render_normals_from_depth"][~near_off].max())
+        <= 5e-4)
+    dense2_err = {k: float(v.max()) for k, v in diff.items()}
+    dense2_err["median_off_pixels"] = int(med_off.sum())
+    cap_s2 = suggest_instance_cap(
+        count_render_instances(small, cfg2d, mlps, state), margin=1.15)
+    out_b = render(small, cfg2d, mlps, state, bg, rasterizer="cuda",
+                   instance_cap=cap_s2)
+    binned_off = (out_b["render"] - out_d["render"]).abs().amax(-1) > 2e-4
+    dense2_err["binned_render_err"] = float(
+        (out_b["render"] - out_d["render"]).abs().max())
+    dense2_err["binned_pixels_off_by_2e-4"] = int(binned_off.sum())
+    print(f"cuda vs dense 256x256 2DGS ({n_all} instances, every surfel in "
+          f"every tile): errors {json.dumps(dense2_err)}")
+    _require(dense2_ok, "2DGS cuda path disagrees with the dense oracle")
+
+    # K3 at the main path's shapes: the inputs of the first 2DGS request
+    dec = decode_view(cams2d[0], cfg2d, mlps, state)
+    ri = build_raster_inputs_2dgs(dec.means, dec.quats, dec.scales,
+                                  dec.opacities, dec.colors,
+                                  cams2d[0].viewmat, cams2d[0].K, W, H,
+                                  cap=cap2)
+    k_args = (ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
+              ri.grid.n_tiles_x, ri.grid.n_tiles_y)
+    kern = raster2d.rasterize2d_fwd(*k_args)
+    plain = raster2d.rasterize2d_fwd_plain(*k_args)
     torch.cuda.synchronize()
+    ok, k3_errs = _compare_k3(kern, plain, 1e-4, k_args)
+    print(f"K3 vs plain 1920x1088: errors {json.dumps(k3_errs)}")
+    _require(ok, "K3 disagrees with its plain version at 1080p")
+    k3_ms = _time_ms(lambda: raster2d.rasterize2d_fwd(*k_args), 20)
+    k3_plain_ms = _time_ms(lambda: raster2d.rasterize2d_fwd_plain(*k_args), 1)
+    k3_walked, k3_contrib = _pair_counts_2d(*k_args[:4], plain[2])
+    k3_inst = int(ri.inst.n_instances)
+    n_pix2 = ri.grid.n_tiles * raster2d.P
+    # fields, ids and tile starts read once; acc (7 rows), aux (4) and the
+    # two int32 records written once: 52 B per pixel
+    k3_bytes = (ri.fields.numel() * 4 + k3_inst * 4
+                + ri.inst.tile_starts.numel() * 4 + n_pix2 * 52)
+    k3_bound_ms, k3_bound_by = _bound(
+        k3_bytes / HBM_BYTES_PER_S,
+        (K3_SFU_WALKED * k3_walked + K3_SFU_CONTRIB * k3_contrib) / sfu_rate,
+        (K3_FP32_WALKED * k3_walked + K3_FP32_CONTRIB * k3_contrib)
+        / fp32_rate)
 
-    K1.launches = K2.launches = 0
-    for _ in range(n_steps):
-        it += 1
-        t0 = time.perf_counter()
-        ts, m = step(ts, ct, it)
-        loss = float(m["loss"])                       # synchronises
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-        dropped.append(int(m["n_dropped"]))
-    train_launches = (K1.launches, K2.launches)
-    _require(train_launches == (n_steps, n_steps),
-             f"K1, K2 launched {train_launches} times in {n_steps} steps")
-    _require(all(math.isfinite(x) for x in losses), f"loss {losses}")
-    _require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    _require(max(dropped) == 0, f"instances dropped: {dropped}")
-    for name, group in ts.params.groups().items():
-        for i, t in enumerate(group):
-            for what, x in (("param", t), ("mu", ts.opt.mu[name][i]),
-                            ("nu", ts.opt.nu[name][i])):
-                _require(bool(torch.isfinite(x).all()),
-                         f"{what} {name}[{i}] finite")
-    _require(float(ts.stats.anchor_demon.sum()) > 0
-             and float(ts.stats.offset_denom.sum()) > 0,
-             "densification statistics gathered")
-    last_metrics = {k: float(v) for k, v in m.items()}
-
-    # where a step's time goes: device time of forward (decode, projection,
-    # binning, K1, loss), backward (autograd with K2) and update (Adam,
-    # statistics, metrics), and one profiled step
-    split = {"forward": [], "backward": [], "update": []}
-    for _ in range(4):
-        it += 1
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        loss_t, aux, pkg, probe = step.forward(ts, ct, it)
-        ev[1].record()
-        grads, probe_grad = step.backward(ts, loss_t, probe)
-        ev[2].record()
-        ts, m = step.update(ts, ct, it, loss_t.detach(), aux, pkg, grads,
-                            probe_grad)
-        ev[3].record()
-        ev[3].synchronize()
-        for i, k in enumerate(split):
-            split[k].append(ev[i].elapsed_time(ev[i + 1]))
-    box = [ts]
-
-    def one_step():
-        box[0], _ = step(box[0], ct, it + 1)
-    step_wall, step_busy, step_top = _device_profile(one_step)
-
+    # 6. training 3DGS: 2 + 20 steps at 1920x1088 ---------------------------
+    torch.set_grad_enabled(True)
+    tr = _train(cfg, make_optim(start_stat=0), state, mlps, cams[0], bg, cap,
+                live, "rasterize_bwd", ALL, (1, 1, 0, 0))
     # K2 at the main path's shapes: the first timed step's inputs
-    (f, gid, starts, d_acc, d_logT, logT, nc, ntx, nty) = captured[0]
-    b_args = captured[0]
+    b_args = tr.pop("captured")
+    f, gid, starts, ntx, nty = (b_args[0], b_args[1], b_args[2], b_args[7],
+                                b_args[8])
     grad_k = raster3d.rasterize_bwd(*b_args)
     grad_p = raster3d.rasterize_bwd_plain(*b_args)
     torch.cuda.synchronize()
-    ok, errs2 = _compare_k2(grad_k, grad_p)
-    walked = _walked_mask(f.shape[0], gid, starts, nc)
+    ok, k2_errs = _compare_k2(grad_k, grad_p)
+    walked = _walked_mask(f.shape[0], gid, starts, b_args[6])
     zeros_ok = bool((grad_k[~walked] == 0).all())
     print(f"K2 vs plain 1920x1088: {int(walked.sum())} gaussians walked "
-          f"(exact zeros elsewhere: {zeros_ok}); errors {json.dumps(errs2)}")
+          f"(exact zeros elsewhere: {zeros_ok}); errors {json.dumps(k2_errs)}")
     _require(ok, "K2 disagrees with its plain version at 1080p")
     _require(zeros_ok, "K2 wrote gradient for gaussians no pixel walked")
     k2_ms = _time_ms(lambda: raster3d.rasterize_bwd(*b_args), 20)
     k2_plain_ms = _time_ms(lambda: raster3d.rasterize_bwd_plain(*b_args), 1)
-    k2_walked, k2_contrib = _pair_counts(f, gid, starts, ntx, nty, nc)
+    k2_walked, k2_contrib = _pair_counts(f, gid, starts, ntx, nty, b_args[6])
     k2_inst = int(starts[-1])
     n_pix = ntx * nty * raster3d.P
     # fields, ids and tile starts read once, 32 B per pixel (d_acc, d_logT,
@@ -547,46 +910,88 @@ def main() -> int:
                 + n_pix * 32)
     k2_bound_ms, k2_bound_by = _bound(
         k2_bytes / HBM_BYTES_PER_S,
-        (K2_SFU_WALKED * k2_walked + K2_SFU_CONTRIB * k2_contrib)
-        / (SFU_OPS_PER_SM_CLK * n_sm * sm_clock_hz),
+        (K2_SFU_WALKED * k2_walked + K2_SFU_CONTRIB * k2_contrib) / sfu_rate,
         (K2_FP32_WALKED * k2_walked + K2_FP32_CONTRIB * k2_contrib)
-        / (FP32_OPS_PER_SM_CLK * n_sm * sm_clock_hz))
+        / fp32_rate)
 
-    # 6. report ----------------------------------------------------------------
+    # 7. training 2DGS, normal and distortion losses on from the start -------
+    opt2d = make_optim(start_stat=0, lambda_normal=0.05, normal_start_iter=0,
+                       lambda_dist=0.01, dist_start_iter=0)
+    tr2 = _train(cfg2d, opt2d, state, mlps, cams2d[0], bg, cap2, live,
+                 "rasterize2d_bwd", ALL, (0, 0, 1, 1))
+    # K4 at the main path's shapes: the first timed step's inputs and
+    # cotangents (the median's and the distortion's included)
+    b_args = tr2.pop("captured")
+    f, gid, starts, rec = b_args[0], b_args[1], b_args[2], b_args[7]
+    grad_k = raster2d.rasterize2d_bwd(*b_args)
+    grad_p = raster2d.rasterize2d_bwd_plain(*b_args)
+    torch.cuda.synchronize()
+    ok, k4_errs = _compare_k2(grad_k, grad_p)
+    walked = _walked_mask(f.shape[0], gid, starts, rec[:, 0])
+    zeros_ok = bool((grad_k[~walked] == 0).all())
+    d_aux_abs = b_args[4].abs().amax(dim=(0, 2)).tolist()
+    print(f"K4 vs plain 1920x1088: {int(walked.sum())} surfels walked "
+          f"(exact zeros elsewhere: {zeros_ok}); max |d_aux| rows (log T, "
+          f"D, distortion, median) {d_aux_abs}; errors {json.dumps(k4_errs)}")
+    _require(ok, "K4 disagrees with its plain version at 1080p")
+    _require(zeros_ok, "K4 wrote gradient for surfels no pixel walked")
+    _require(min(d_aux_abs[2:]) > 0,
+             "no cotangent reached the distortion or the median")
+    k4_ms = _time_ms(lambda: raster2d.rasterize2d_bwd(*b_args), 20)
+    k4_plain_ms = _time_ms(lambda: raster2d.rasterize2d_bwd_plain(*b_args),
+                           1)
+    k4_walked, k4_contrib = _pair_counts_2d(f, gid, starts, b_args[8], rec)
+    k4_inst = int(starts[-1])
+    n_pix2 = b_args[8] * b_args[9] * raster2d.P
+    # fields, ids and tile starts read once; per pixel d_acc (7 rows),
+    # d_aux (4), A, log T, D and the two records: 64 B; the field gradient
+    # written once
+    k4_bytes = (f.numel() * 4 * 2 + k4_inst * 4 + starts.numel() * 4
+                + n_pix2 * 64)
+    k4_bound_ms, k4_bound_by = _bound(
+        k4_bytes / HBM_BYTES_PER_S,
+        (K4_SFU_WALKED * k4_walked + K4_SFU_CONTRIB * k4_contrib) / sfu_rate,
+        (K4_FP32_WALKED * k4_walked + K4_FP32_CONTRIB * k4_contrib)
+        / fp32_rate)
+
+    # 8. report ----------------------------------------------------------------
+    paths = {"serve_3dgs": sv["launches"], "train_3dgs": tr["launches"],
+             "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"]}
+
+    def launches(i):
+        return {p: n[i] for p, n in paths.items()}
+
     print(json.dumps({
         "slice": "render 1920x1088 flagship LOD (cuda)", "card": card,
-        "views": n_views, "view_ms": view_ms, "view_ms_p50": p50,
+        "views": n_views, "view_ms": sv["view_ms"], "view_ms_p50": p50,
         "views_per_s": 1e3 / p50,
         "anchors": state.n, "capacity": state.capacity,
         "decoded_gaussians": state.capacity * cfg.n_offsets,
         "instances_per_view": n_inst, "instance_cap": cap,
         "mean_alpha": alpha_mean}))
+    print(json.dumps(_serve_report(sv, card)))
+    print(json.dumps(_slice_report("train 1920x1088 flagship LOD (cuda)",
+                                   card, tr, cap)))
+    p50_2 = _median(sv2["view_ms"])
     print(json.dumps({
-        "stages_ms_p50": {k: _median(v) for k, v in stages.items()},
-        "profiled_request": {"wall_ms": prof_wall, "device_busy_ms": prof_busy,
-                             "device_idle_share": 1 - prof_busy / prof_wall,
-                             "top_kernels_ms": prof_top},
-        "card": card}))
-    print(json.dumps({
-        "slice": "train 1920x1088 flagship LOD (cuda)", "card": card,
-        "steps": n_steps, "warmup_steps": n_warm, "step_ms": step_ms,
-        "step_ms_p50": _median(step_ms), "step_ms_min": min(step_ms),
-        "step_ms_max": max(step_ms), "losses": losses,
-        "last_metrics": last_metrics, "instance_cap": cap,
-        "stages_ms_p50": {k: _median(v) for k, v in split.items()},
-        "profiled_step": {"wall_ms": step_wall, "device_busy_ms": step_busy,
-                          "device_idle_share": 1 - step_busy / step_wall,
-                          "top_kernels_ms": step_top}}))
+        "slice": "render 1920x1088 flagship LOD 2DGS (cuda)", "card": card,
+        "views": n_views_2d, "view_ms": sv2["view_ms"],
+        "view_ms_p50": p50_2, "views_per_s": 1e3 / p50_2,
+        "decoded_surfels": state.capacity * cfg.n_offsets,
+        "instances_per_view": n_inst2, "instance_cap": cap2,
+        "mean_alpha": alpha_mean2, **_serve_report(sv2, card)}))
+    print(json.dumps(_slice_report(
+        "train 1920x1088 flagship LOD 2DGS, normal + distortion (cuda)",
+        card, tr2, cap2)))
     print(json.dumps({"kernels": [{
         "name": "raster3d_fwd (K1)", "route": "cuda",
         "source": "horizongs_tpu_torch/csrc/raster3d_fwd.cu",
         "replaces": "horizongs_tpu/ops/pallas/raster3d.py:189",
-        "launches": train_launches[0],
-        "launches_by_path": {"serve": serve_launches[0],
-                             "train": train_launches[0]},
-        "max_abs_err": max(errs["acc_rgb_alpha"], errs["acc_depth"],
-                           errs["T"]),
-        "errors": errs,
+        "launches": sum(launches(0).values()),
+        "launches_by_path": launches(0),
+        "max_abs_err": max(k1_errs["acc_rgb_alpha"], k1_errs["acc_depth"],
+                           k1_errs["T"]),
+        "errors": k1_errs,
         "tolerance": "acc atol 1e-4 (depth + rtol 2e-4); exp(logT) atol "
                      "1e-4; i_fin within 1; n_contrib equal or at the stop",
         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
@@ -596,16 +1001,44 @@ def main() -> int:
         "name": "raster3d_bwd (K2)", "route": "cuda",
         "source": "horizongs_tpu_torch/csrc/raster3d_bwd.cu",
         "replaces": "horizongs_tpu/ops/pallas/raster3d.py:359",
-        "launches": train_launches[1],
-        "launches_by_path": {"serve": serve_launches[1],
-                             "train": train_launches[1]},
-        "max_abs_err": errs2["max_abs_err"], "errors": errs2,
+        "launches": sum(launches(1).values()),
+        "launches_by_path": launches(1),
+        "max_abs_err": k2_errs["max_abs_err"], "errors": k2_errs,
         "tolerance": f"per field {K2_TOL} x max |grad| of the field; "
                      "exact zeros for gaussians no pixel walked",
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
         "bound_by": k2_bound_by, "library_ms": None,
         "walked_pairs": k2_walked, "contributing_pairs": k2_contrib,
         "instances": k2_inst, "sm_clock_mhz": sm_clock_hz / 1e6,
+        "card": card}, {
+        "name": "raster2d_fwd (K3)", "route": "cuda",
+        "source": "horizongs_tpu_torch/csrc/raster2d_fwd.cu",
+        "replaces": "horizongs_tpu/ops/pallas/raster2d.py:147",
+        "launches": sum(launches(2).values()),
+        "launches_by_path": launches(2),
+        "max_abs_err": max(k3_errs["acc"], k3_errs["D"],
+                           k3_errs["distortion"], k3_errs["T"]),
+        "errors": k3_errs,
+        "tolerance": "acc atol 1e-4; D + rtol 2e-4; distortion + 2e-4 x "
+                     "(|dist| + D); exp(logT) atol 1e-4; median equal on "
+                     "the same surfel; records equal or at a boundary",
+        "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
+        "bound_by": k3_bound_by, "library_ms": None,
+        "walked_pairs": k3_walked, "contributing_pairs": k3_contrib,
+        "instances": k3_inst, "sm_clock_mhz": sm_clock_hz / 1e6,
+        "card": card}, {
+        "name": "raster2d_bwd (K4)", "route": "cuda",
+        "source": "horizongs_tpu_torch/csrc/raster2d_bwd.cu",
+        "replaces": "horizongs_tpu/ops/pallas/raster2d.py:285",
+        "launches": sum(launches(3).values()),
+        "launches_by_path": launches(3),
+        "max_abs_err": k4_errs["max_abs_err"], "errors": k4_errs,
+        "tolerance": f"per field {K2_TOL} x max |grad| of the field; "
+                     "exact zeros for surfels no pixel walked",
+        "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound_ms,
+        "bound_by": k4_bound_by, "library_ms": None,
+        "walked_pairs": k4_walked, "contributing_pairs": k4_contrib,
+        "instances": k4_inst, "sm_clock_mhz": sm_clock_hz / 1e6,
         "card": card}]}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {

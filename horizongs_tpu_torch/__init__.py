@@ -11,10 +11,13 @@ Layer map (bottom -> top):
   core/      cameras, rotations, spherical harmonics
   data/      synthetic scenes and camera rigs
   models/    model config, MLP decoders, anchor tables and LOD decode
-  ops/       projection, tile binning, dense oracle, the K1 compositor
-             (`ops/raster3d.py` + `csrc/raster3d_fwd.cu`), its wrapper
+  ops/       projection, tile binning, dense oracles, the 3DGS compositors
+             K1/K2 (`ops/raster3d.py` + `csrc/raster3d_*.cu`), the 2DGS
+             compositors K3/K4 (`ops/raster2d.py` + `csrc/raster2d_*.cu`),
+             their wrappers (`ops/raster_cuda.py`)
   kernels.py nvcc build, load and launch count of the CUDA sources
   render.py  the serving entry point: camera + model -> images
+  train/     losses, schedules, Adam, the training step
   convert.py the JAX package's parameters (as numpy) -> this package
 """
 

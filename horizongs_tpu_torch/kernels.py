@@ -1,10 +1,11 @@
 """Build, load and count the package's CUDA kernels.
 
-Each kernel is one source `csrc/<name>.cu` with a plain C entry point. At
-first use it is compiled with `nvcc` for Hopper (`sm_90a`) into a shared
-library under `build/kernels/` at the checkout root (listed in
-`.gitignore`), named by the hash of the source and the flags, so an edited
-source is rebuilt. The library is loaded with `ctypes`; pointers and the
+Each kernel is one source `csrc/<name>.cu` with a plain C entry point; it
+may include the headers `csrc/*.cuh`. At first use it is compiled with
+`nvcc` for Hopper (`sm_90a`) into a shared library under `build/kernels/`
+at the checkout root (listed in `.gitignore`), named by the hash of the
+source, the headers and the flags, so an edited source or header is
+rebuilt. The library is loaded with `ctypes`; pointers and the
 stream go across as `c_void_p`. A missing `nvcc`, a failed build or a
 non-zero return from a launch raises: there is no fallback.
 """
@@ -44,7 +45,8 @@ def build(name: str) -> BuildResult:
     """Compile `csrc/<name>.cu` unless the library for its current source
     is already there."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}-{digest}.so"
     if out.exists():

@@ -171,13 +171,14 @@ def _check(name, x, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_segments(fields, gauss_id, tile_starts, n_tiles):
+def _check_segments(fields, gauss_id, tile_starts, n_tiles,
+                    n_fields=N_FIELDS):
     dev = fields.device
     _check("fields", fields, torch.float32, 2, dev)
     _check("gauss_id", gauss_id, torch.int32, 1, dev)
     _check("tile_starts", tile_starts, torch.int32, 1, dev)
-    if fields.shape[1] != N_FIELDS:
-        raise ValueError(f"fields must be (N, {N_FIELDS}), got "
+    if fields.shape[1] != n_fields:
+        raise ValueError(f"fields must be (N, {n_fields}), got "
                          f"{tuple(fields.shape)}")
     if tile_starts.shape[0] != n_tiles + 1:
         raise ValueError(f"tile_starts must have n_tiles+1 = {n_tiles + 1} "

@@ -2,12 +2,15 @@
 and of the training step.
 
 LOD anchor mask -> optional frustum prefilter -> neural-gaussian decode ->
-3DGS rasterization, through the K1/K2 CUDA kernels (`rasterizer="cuda"`,
-the counterpart of the JAX package's Pallas path) or the dense oracle
+rasterization, 3DGS (`gs_attr="3D"`) through the K1/K2 CUDA kernels or 2DGS
+(surfels, `gs_attr="2D"`) through K3/K4 (`rasterizer="cuda"`, the
+counterpart of the JAX package's Pallas path), or the dense oracle
 (`"dense"`). Images are HWC float32 on the model's device. The render is
-differentiable in the model's tensors (K2 carries the gradient through
-the compositor); serve under `torch.no_grad()`, where nothing is kept for
-a backward pass.
+differentiable in the model's tensors (K2 and K4 carry the gradient
+through the compositor); serve under `torch.no_grad()`, where nothing is
+kept for a backward pass. 2DGS adds `render_normals`,
+`render_normals_from_depth`, `render_distort` and `render_median_depth`
+to the output.
 
 `means2d_probe` is the handle for the screen-space gradients the
 densification statistics need (the JAX package's argument of the same
@@ -30,31 +33,40 @@ from horizongs_tpu_torch.models.anchors import (
 )
 from horizongs_tpu_torch.models.config import ModelConfig
 from horizongs_tpu_torch.models.mlp import MlpDecoders
-from horizongs_tpu_torch.ops.projection import project_3dgs
+from horizongs_tpu_torch.ops.projection import project_2dgs, project_3dgs
 from horizongs_tpu_torch.ops.raster_cuda import (
+    count_instances_2dgs,
     count_instances_3dgs,
+    rasterize_cuda_2dgs,
     rasterize_cuda_3dgs,
 )
-from horizongs_tpu_torch.ops.reference import render_dense_3dgs
+from horizongs_tpu_torch.ops.reference import (
+    render_dense_2dgs,
+    render_dense_3dgs,
+)
+
+_PROJECT = {"3D": project_3dgs, "2D": project_2dgs}
+_COUNT = {"3D": count_instances_3dgs, "2D": count_instances_2dgs}
+_RASTERIZE = {("3D", "cuda"): rasterize_cuda_3dgs,
+              ("3D", "dense"): render_dense_3dgs,
+              ("2D", "cuda"): rasterize_cuda_2dgs,
+              ("2D", "dense"): render_dense_2dgs}
 
 
-def _require_3dgs(cfg: ModelConfig) -> None:
-    if cfg.gs_attr == "2D":
-        raise NotImplementedError(
-            "2DGS (gs_attr='2D') arrives with the 2DGS slice of the port "
-            "(kernels K3/K4)")
-    if cfg.gs_attr != "3D":
+def _check_gs_attr(cfg: ModelConfig) -> None:
+    if cfg.gs_attr not in _PROJECT:
         raise ValueError(f"Unknown gs_attr: {cfg.gs_attr}")
 
 
 def prefilter_anchors(cfg: ModelConfig, state: AnchorState, cam: Camera,
                       anchor_mask: torch.Tensor) -> torch.Tensor:
-    """Frustum prefilter: project anchors as gaussians with their offset
-    scales and keep radii > 0 (`prefilter_voxel`)."""
-    _require_3dgs(cfg)
+    """Frustum prefilter: project anchors as gaussians (3DGS) or surfels
+    (2DGS) with their offset scales and keep radii > 0
+    (`prefilter_voxel`)."""
+    _check_gs_attr(cfg)
     scales = torch.exp(state.scaling_log)[:, :3]
-    proj = project_3dgs(state.anchor, state.rotation, scales, cam.viewmat,
-                        cam.K, cam.width, cam.height)
+    proj = _PROJECT[cfg.gs_attr](state.anchor, state.rotation, scales,
+                                 cam.viewmat, cam.K, cam.width, cam.height)
     return anchor_mask & (proj.radii > 0)
 
 
@@ -85,32 +97,29 @@ def render(cam: Camera,
     and `ops.raster_cuda.suggest_instance_cap`. Overflow is counted, never
     silent (`pkg["n_dropped"]`). `means2d_probe`: see the module
     docstring."""
-    _require_3dgs(cfg)
+    _check_gs_attr(cfg)
+    if rasterizer not in ("cuda", "dense"):
+        raise ValueError(f"Unknown rasterizer: {rasterizer}")
     dec = decode_view(cam, cfg, mlps, state, add_prefilter)
     colors = dec.colors
     if cfg.color_attr != "RGB":
         colors = colors.reshape(-1, cfg.color_dim // 3, 3)
-    sh_degree = cfg.max_sh_degree
 
-    args = (dec.means, dec.quats, dec.scales, dec.opacities, colors,
-            cam.viewmat, cam.K, cam.width, cam.height, background)
+    kw = dict(sh_degree=cfg.max_sh_degree, render_mode=cfg.render_mode,
+              means2d_probe=means2d_probe)
     if rasterizer == "cuda":
-        out, alphas, info = rasterize_cuda_3dgs(
-            *args, sh_degree=sh_degree, render_mode=cfg.render_mode,
-            cap=instance_cap, means2d_probe=means2d_probe)
-    elif rasterizer == "dense":
-        out, alphas, info = render_dense_3dgs(
-            *args, sh_degree=sh_degree, render_mode=cfg.render_mode,
-            means2d_probe=means2d_probe)
-    else:
-        raise ValueError(f"Unknown rasterizer: {rasterizer}")
+        kw["cap"] = instance_cap
+    # 3DGS: (render, alphas, info); 2DGS adds four maps before info
+    out, alphas, *surfel_maps, info = _RASTERIZE[cfg.gs_attr, rasterizer](
+        dec.means, dec.quats, dec.scales, dec.opacities, colors,
+        cam.viewmat, cam.K, cam.width, cam.height, background, **kw)
 
     if out.shape[-1] == 4:
         image, depth = out[..., :3], out[..., 3:4]
     else:
         image, depth = out, None
     zero = torch.zeros((), dtype=torch.int32, device=out.device)
-    return {
+    pkg = {
         "render": image,                       # (H, W, 3)
         "render_depth": depth,                 # (H, W, 1) or None
         "render_alphas": alphas,               # (H, W, 1)
@@ -125,6 +134,11 @@ def render(cam: Camera,
         "n_dropped": info.get("n_dropped", zero),
         "n_instances": info.get("n_instances", zero),
     }
+    if surfel_maps:
+        pkg.update(zip(("render_normals", "render_normals_from_depth",
+                        "render_distort", "render_median_depth"),
+                       surfel_maps))
+    return pkg
 
 
 def count_render_instances(cam: Camera, cfg: ModelConfig, mlps: MlpDecoders,
@@ -134,10 +148,10 @@ def count_render_instances(cam: Camera, cfg: ModelConfig, mlps: MlpDecoders,
     current model: LOD mask -> decode -> projection + lossless cull + AABB
     spans. Take the max over a few cameras to calibrate
     `render(instance_cap=...)` via `suggest_instance_cap`."""
-    _require_3dgs(cfg)
+    _check_gs_attr(cfg)
     with torch.no_grad():
         dec = decode_view(cam, cfg, mlps, state, add_prefilter)
-        n = count_instances_3dgs(dec.means, dec.quats, dec.scales,
-                                 dec.opacities, cam.viewmat, cam.K,
-                                 cam.width, cam.height)
+        n = _COUNT[cfg.gs_attr](dec.means, dec.quats, dec.scales,
+                                dec.opacities, cam.viewmat, cam.K,
+                                cam.width, cam.height)
     return int(n)

@@ -1,11 +1,13 @@
 """The training step: render -> loss -> backward -> Adam -> statistics.
 
 The JAX package's `train/step.py` in eager PyTorch: the forward render
-(decode, projection, binning, K1), the loss, the backward through autograd
-(K2 for the compositor), the Adam update with per-group scheduled LRs, and
-the densification statistics (`training_statis` of Horizon-GS) as masked
-dense updates. The screen-space gradients the statistics need come from a
-zero probe added to the projected means (`render(means2d_probe=...)`).
+(decode, projection, binning, K1 or for 2DGS K3), the loss, the backward
+through autograd (K2 or K4 for the compositor), the Adam update with
+per-group scheduled LRs, and the densification statistics
+(`training_statis` of Horizon-GS) as masked dense updates. The
+screen-space gradients the statistics need come from a zero probe added
+to the projected means (`render(means2d_probe=...)`); for 2DGS it moves
+the centre of the screen-space low-pass only (fields mx, my).
 
 Parameters and moments are updated in place (see `optim.py`); the step
 returns the same `TrainState` with the new statistics and step count.
@@ -184,7 +186,7 @@ class TrainStep:
     """`step(state, cam, iteration) -> (state, metrics)`; see
     `build_train_step`. The step is three stages, which a caller may also
     run one by one (to time them): `forward` (render and loss), `backward`
-    (autograd, K2 for the compositor) and `update` (Adam, statistics,
+    (autograd, K2 or K4 for the compositor) and `update` (Adam, statistics,
     metrics)."""
 
     def __init__(self, cfg: ModelConfig, opt, height: int, width: int,
@@ -286,8 +288,9 @@ def build_train_step(cfg: ModelConfig, opt, height: int, width: int,
     """The JAX package's `build_train_step`, eager: returns
     `step(state, cam: CameraTensors, iteration) -> (state, metrics)` with
     the metrics loss, l1, ssim, depth_l1, psnr, n_selected and n_dropped
-    (tensors on the model's device). `rasterizer` is "cuda" (K1/K2; their
-    plain versions for CPU tensors) or "dense" (the oracle, through
+    (tensors on the model's device). `rasterizer` is "cuda" (K1/K2, for
+    2DGS K3/K4; their plain versions for CPU tensors) or "dense" (the
+    oracle, through
     autograd). The background is black and the spatial LR scale 1.0, the
     JAX defaults. Turns TF32 off for the process (the SSIM
     convolutions)."""

@@ -155,3 +155,59 @@ def test_assemble_loss_matches(iteration, f32_blur):
     for k, x, y in zip(keys, gt_, gj):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), err_msg=k,
                                    **TOL)
+
+
+@pytest.mark.parametrize("iteration", [5.0, 50.0],
+                         ids=["surfel_terms_gated_off", "surfel_terms_on"])
+def test_assemble_loss_2dgs_matches(iteration, f32_blur):
+    """The 2DGS terms: the normal loss (rendered normals against the
+    normals from the median depth, weighted by the detached alphas) and the
+    distortion, gated at normal_start_iter = dist_start_iter = 10; values
+    and gradients w.r.t. the image, alphas, normals, normals from depth and
+    distortion."""
+    kw = dict(lambda_dssim=0.2, lambda_normal=0.05, normal_start_iter=10,
+              lambda_dist=0.01, dist_start_iter=10)
+    opt_j, opt_t = j_make_optim(**kw), make_optim(**kw)
+    rng = np.random.default_rng(6)
+    pkg = _pkg(seed=7)
+    n = rng.normal(size=(H, W, 3))
+    nfd = rng.normal(size=(H, W, 3))
+    pkg["render_normals"] = (0.8 * n / np.linalg.norm(n, axis=-1,
+                                                      keepdims=True)
+                             ).astype(np.float32)
+    pkg["render_normals_from_depth"] = (
+        nfd / np.linalg.norm(nfd, axis=-1, keepdims=True)).astype(np.float32)
+    pkg["render_distort"] = rng.uniform(0, 0.5, (H, W, 1)).astype(np.float32)
+    gt = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    amask = (rng.uniform(size=(H, W, 1)) > 0.2).astype(np.float32)
+    keys = ("render", "render_alphas", "render_normals",
+            "render_normals_from_depth", "render_distort")
+
+    def j_loss(*xs):
+        p = dict(pkg, **dict(zip(keys, xs)))
+        p["selection_mask"] = jnp.asarray(pkg["selection_mask"], jnp.float32)
+        return jl.assemble_loss(opt_j, p, gt, amask, None, None,
+                                jnp.float32(iteration), jnp.float32(0.0),
+                                "RGB+ED")
+
+    (vj, aux_j), gj = jax.value_and_grad(j_loss, argnums=tuple(range(5)),
+                                         has_aux=True)(
+        *(jnp.asarray(pkg[k]) for k in keys))
+    ts = [torch.from_numpy(pkg[k]).requires_grad_(True) for k in keys]
+    p = {k: torch.from_numpy(v) for k, v in pkg.items()}
+    p.update(zip(keys, ts))
+    vt, aux_t = tl.assemble_loss(opt_t, p, torch.from_numpy(gt),
+                                 torch.from_numpy(amask), None, None,
+                                 iteration, 0.0, "RGB+ED")
+    gt_ = torch.autograd.grad(vt, ts)
+    np.testing.assert_allclose(vt.item(), float(vj), **TOL)
+    for k in ("l1", "ssim", "total"):
+        np.testing.assert_allclose(float(aux_t[k].detach()), float(aux_j[k]),
+                                   **TOL)
+    on = iteration > 10
+    for k, x, y in zip(keys, gt_, gj):
+        np.testing.assert_allclose(x.numpy(), np.asarray(y), err_msg=k,
+                                   **TOL)
+        if k in ("render_normals", "render_normals_from_depth",
+                 "render_distort"):
+            assert (np.abs(x.numpy()).max() > 0) == on, k

@@ -98,10 +98,15 @@ def test_dense_rasterizer_matches_cuda_path(flagship):
 
 
 def test_2dgs_and_default_device_refused(flagship):
+    """An unknown `gs_attr` (2DGS is served since the 2DGS slice,
+    `test_torch_render2d.py`) or rasterizer raises ValueError, and without
+    a card the default device raises."""
     _, (tcfg, tm, ts, tcam) = _models(flagship, offset_noise=False)
-    cfg2d = ModelConfig(**{**tcfg.__dict__, "gs_attr": "2D"})
-    with pytest.raises(NotImplementedError, match="2DGS"):
-        t_render(tcam, cfg2d, tm, ts, torch.zeros(3))
+    cfg_bad = ModelConfig(**{**tcfg.__dict__, "gs_attr": "4D"})
+    with pytest.raises(ValueError, match="gs_attr"):
+        t_render(tcam, cfg_bad, tm, ts, torch.zeros(3))
+    with pytest.raises(ValueError, match="rasterizer"):
+        t_render(tcam, tcfg, tm, ts, torch.zeros(3), rasterizer="tiled")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             lookat_camera(width=32, height=32)

@@ -34,6 +34,7 @@ from horizongs_tpu_torch.train import optim as topt
 from horizongs_tpu_torch.train import schedules as tsch
 from horizongs_tpu_torch.train import step as tstep
 from test_torch_losses import f32_blur  # noqa: F401  (fixture)
+from test_torch_raster2d import safe_depth_normals  # noqa: F401  (fixture)
 
 # small shapes: one torch thread per test worker process, so parallel
 # workers do not oversubscribe the cores
@@ -204,11 +205,19 @@ LOD = dict(name="GaussianLoDModel", feat_dim=8, n_offsets=4, view_dim=3,
            aerial_levels=2, street_levels=4, standard_dist=8.0)
 
 
-@pytest.mark.parametrize("cfg_kw, prefilter", [(FLAT, False), (LOD, True)],
-                         ids=["flat_48x48", "lod_48x48_prefilter"])
-def test_train_step_matches_jax(cfg_kw, prefilter, f32_blur):
+SURFEL_LOSSES = dict(lambda_normal=0.05, normal_start_iter=0,
+                     lambda_dist=0.01, dist_start_iter=0)
+
+
+@pytest.mark.parametrize("cfg_kw, prefilter, loss_kw",
+                         [(FLAT, False, {}), (LOD, True, {}),
+                          (dict(LOD, gs_attr="2D"), True, SURFEL_LOSSES)],
+                         ids=["flat_48x48", "lod_48x48_prefilter",
+                              "lod_2dgs_48x48_normal_dist"])
+def test_train_step_matches_jax(cfg_kw, prefilter, loss_kw, f32_blur,
+                                safe_depth_normals):
     okw = dict(iterations=2000, start_stat=0, feature_lr=0.03,
-               mlp_color_lr_init=0.02, mlp_opacity_lr_init=0.01)
+               mlp_color_lr_init=0.02, mlp_opacity_lr_init=0.01, **loss_kw)
     cams, images, pts = _targets()
     ts_j = _j_train_state(JConfig(**cfg_kw), pts, capacity=256, noise=0.3)
     ts_t = train_state_from_numpy(_np(ts_j), device="cpu")
@@ -288,6 +297,42 @@ def test_training_reduces_loss():
     first, last = np.mean(losses[:8]), np.mean(losses[-8:])
     assert last < first * 0.7, f"loss did not decrease: {first} -> {last}"
     assert float(ts.stats.anchor_demon.sum()) > 0
+    assert float(ts.stats.offset_denom.sum()) > 0
+    for leaf in ts.params.groups().values():
+        for t in leaf:
+            assert torch.isfinite(t).all()
+
+
+def test_training_2dgs_reduces_loss():
+    """The surfel model fits the scene too: 60 steps of the 48x48 flat
+    model as 2DGS through K3/K4's plain versions, the normal and distortion
+    losses on from step 10."""
+    cfg = ModelConfig(**dict(FLAT, gs_attr="2D"))
+    opt = make_optim(iterations=2000, lambda_dreg=0.0, lambda_sky_opa=0.0,
+                     lambda_opacity_entropy=0.0, start_stat=0,
+                     feature_lr=0.03, mlp_color_lr_init=0.02,
+                     mlp_opacity_lr_init=0.01, lambda_normal=0.05,
+                     normal_start_iter=10, lambda_dist=0.01,
+                     dist_start_iter=10)
+    cams, images, pts = _targets()
+    state = init_anchor_state_from_points(cfg, pts, capacity=256,
+                                          device="cpu")
+    mlps = init_mlps(cfg.feat_dim, cfg.view_dim, cfg.appearance_dim,
+                     cfg.n_offsets, cfg.color_dim,
+                     generator=torch.Generator().manual_seed(0),
+                     device="cpu")
+    ts = tstep.init_train_state(state, mlps)
+    step = tstep.build_train_step(cfg, opt, H, W, add_prefilter=False)
+    cam_ts = [tstep.camera_tensors(c, image=torch.from_numpy(im),
+                                   do_stats=True)
+              for c, im in zip(cams, images)]
+    losses = []
+    for it in range(1, 61):
+        ts, metrics = step(ts, cam_ts[it % len(cam_ts)], it)
+        losses.append(float(metrics["loss"]))
+    assert np.isfinite(losses).all()
+    first, last = np.mean(losses[:8]), np.mean(losses[-8:])
+    assert last < first * 0.8, f"loss did not decrease: {first} -> {last}"
     assert float(ts.stats.offset_denom.sum()) > 0
     for leaf in ts.params.groups().values():
         for t in leaf:
