@@ -8,7 +8,10 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
 
   1. device    the card's name and power limit (nvidia-smi)
   2. build     K1 (`csrc/raster3d_fwd.cu`), K2 (`csrc/raster3d_bwd.cu`), K3
-               (`csrc/raster2d_fwd.cu`) and K4 (`csrc/raster2d_bwd.cu`) with
+               (`csrc/raster2d_fwd.cu`), K4 (`csrc/raster2d_bwd.cu`) and the
+               measurement tools' kernels T1
+               (`csrc/raster3d_fwd_persistent.cu`), T2 (K2's source with
+               -DK2_VARIANT=1..4) and T3 (`csrc/grid_overhead.cu`) with
                nvcc, one process each started together, timed, with
                ptxas's registers, shared memory and spills
   3. kernel    K1 and K2 against their plain PyTorch versions on a seeded
@@ -45,12 +48,32 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
   7. train 2D  the same for the surfel model with the normal and
                distortion losses on from the first step: K3 and K4 once per
                step, K4 against its plain version at 1080p
-  8. report    per-view and per-step timings, the layer breakdowns, the
-               kernels line, and last the device line
+  8. tools     T1 (persistent K1, static and dynamic schedules) bit for bit
+               against K1, two launches each, on the 256x256 scene and the
+               inputs of 1080p request 0, then timed there and on the
+               equal-L sweep (`tools/fused_fwd.py`); T2's five variants,
+               each at K2's blocks per SM, timed on the JAX tool's scene
+               and on the first training step's K2 inputs, "full" against
+               K2 within K2_TOL (`tools/profile_bwd_variants.py`); T3's
+               table of device us per block at 255-4080 blocks beside
+               `zero_()`, launched back to back from a CUDA graph
+               (`tools/profile_grid_overhead.py`). Serving and training
+               (phases 4-7) must have launched none of them
+  9. densify   one coarse `run_densify` epoch of the trained 3DGS state on
+               the card (the statistics gates opened for 22 steps): at
+               least one anchor grown and one pruned, equal to the same
+               epoch on a CPU copy (n, levels, tables, moments,
+               statistics), timed by phase; then 5 steps at the new
+               capacity with a recalibrated cap: K1 and K2 once per step,
+               K3, K4 and the tools never, nothing dropped, loss finite
+ 10. report    per-view and per-step timings, the layer breakdowns, the
+               densify epoch, the tools' tables, the kernels line, and
+               last the device line
 
 Prints nothing after a failure and exits non-zero without a card or
 without the package beside it.
 """
+import collections
 import json
 import math
 import subprocess
@@ -83,6 +106,15 @@ K3_FP32_WALKED, K3_FP32_CONTRIB = 50, 30
 K4_SFU_WALKED, K4_SFU_CONTRIB = 2, 4
 K4_FP32_WALKED, K4_FP32_CONTRIB = 50, 140
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+# T2's variants (K2 with parts removed, csrc/raster3d_bwd.cu) keep K2's
+# work per walked pair (alpha: one exp, ~16 FP32); per contributing pair
+# (SFU, FP32): no_color drops dL/dw's four products and the four colour /
+# depth sums (~16 FP32), walk_only keeps only the log1p of the walk
+T2_CONTRIB_OPS = {"full": (K2_SFU_CONTRIB, K2_FP32_CONTRIB),
+                  "no_atomic": (K2_SFU_CONTRIB, K2_FP32_CONTRIB),
+                  "no_color": (K2_SFU_CONTRIB, K2_FP32_CONTRIB - 16),
+                  "no_reduce": (K2_SFU_CONTRIB, K2_FP32_CONTRIB),
+                  "walk_only": (1, 2)}
 
 
 def _smi(query: str) -> str:
@@ -100,17 +132,8 @@ def _require(cond: bool, what: str) -> None:
 def _time_ms(fn, reps: int) -> float:
     """Mean device time of `fn` over `reps` back-to-back calls (CUDA
     events), after one warm-up call."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from horizongs_tpu_torch.tools.timing import best_ms
+    return best_ms(fn, reps, rounds=1)
 
 
 def _median(xs):
@@ -119,26 +142,14 @@ def _median(xs):
     return 0.5 * (xs[(n - 1) // 2] + xs[n // 2])
 
 
-def _device_profile(fn):
-    """One call of `fn` under torch.profiler: wall ms, device-busy ms (sum
-    of kernel durations) and the eight kernels with the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return wall_ms, sum(by_name.values()), top
+def _profile_report(p):
+    """A `tools.timing.device_profile` reading of one call: wall ms,
+    device-busy ms, idle share and the eight kernels with the most device
+    time."""
+    top = sorted(p["by_name"].items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": p["wall_ms"], "device_busy_ms": p["busy_ms"],
+            "device_idle_share": 1 - p["busy_ms"] / p["wall_ms"],
+            "top_kernels_ms": top}
 
 
 def _compare_k1(kern, plain, atol, k_args):
@@ -373,6 +384,17 @@ def _pair_counts_2d(fields, gauss_id, tile_starts, n_tiles_x, rec):
     return int(rec[:, 0].sum()), int(contrib)
 
 
+def _flat_leaves(tree, prefix=""):
+    """Nested dicts of arrays and numbers (`convert.train_state_to_numpy`)
+    -> (dotted name, array) pairs."""
+    import numpy as np
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, f"{prefix}{key}.")
+        elif v is not None:
+            yield f"{prefix}{key}", np.asarray(v)
+
+
 def _counts(kernels):
     return tuple(k.launches for k in kernels)
 
@@ -391,6 +413,7 @@ def _serve(cams, cfg, mlps, state, bg, cap, build, fwd, kernels, expect):
     kernel (`fwd`)) and one profiled request."""
     import torch
     from horizongs_tpu_torch.render import decode_view, render
+    from horizongs_tpu_torch.tools.timing import device_profile
     W, H = cams[0].width, cams[0].height
     for c in cams:                                   # warm-up
         render(c, cfg, mlps, state, bg, instance_cap=cap)
@@ -429,7 +452,7 @@ def _serve(cams, cfg, mlps, state, bg, cap, build, fwd, kernels, expect):
         ev[3].synchronize()
         for i, k in enumerate(stages):
             stages[k].append(ev[i].elapsed_time(ev[i + 1]))
-    prof = _device_profile(
+    prof = device_profile(
         lambda: render(cams[0], cfg, mlps, state, bg, instance_cap=cap))
     return {"view_ms": view_ms, "pkgs": pkgs, "launches": launches,
             "stages": stages, "prof": prof}
@@ -446,12 +469,15 @@ def _train(cfg, opt, state, mlps, cam, bg, cap, live, bwd_name, kernels,
     `raster_cuda.<bwd_name>`'s inputs in the first timed step are copied in
     an untimed forward and backward of that step's state and iteration.
     Then the device time of forward, backward and update and one profiled
-    step. The decoders are copied: a step updates them in place."""
+    step. The decoders are copied: a step updates them in place. Returns
+    the timings, the captured inputs, and the final state, camera and
+    iteration."""
     import copy
     import torch
     from horizongs_tpu_torch.ops import raster_cuda
     from horizongs_tpu_torch.ops.raster_cuda import suggest_instance_cap
     from horizongs_tpu_torch.render import count_render_instances, render
+    from horizongs_tpu_torch.tools.timing import device_profile
     from horizongs_tpu_torch.train.step import (
         build_train_step, camera_tensors, init_train_state)
     n_warm, n_steps = 2, 20
@@ -538,14 +564,14 @@ def _train(cfg, opt, state, mlps, cam, bg, cap, live, bwd_name, kernels,
 
     def one_step():
         box[0], _ = step(box[0], ct, it + 1)
-    prof = _device_profile(one_step)
+    prof = device_profile(one_step)
     return {"losses": losses, "step_ms": step_ms, "launches": launches,
             "last_metrics": last_metrics, "split": split, "prof": prof,
-            "captured": captured[0], "n_steps": n_steps, "n_warm": n_warm}
+            "captured": captured[0], "n_steps": n_steps, "n_warm": n_warm,
+            "state": box[0], "camera": ct, "iteration": it + 1}
 
 
 def _slice_report(name, card, tr, cap):
-    p = tr["prof"]
     return {"slice": name, "card": card, "steps": tr["n_steps"],
             "warmup_steps": tr["n_warm"], "step_ms": tr["step_ms"],
             "step_ms_p50": _median(tr["step_ms"]),
@@ -553,18 +579,12 @@ def _slice_report(name, card, tr, cap):
             "step_ms_max": max(tr["step_ms"]), "losses": tr["losses"],
             "last_metrics": tr["last_metrics"], "instance_cap": cap,
             "stages_ms_p50": {k: _median(v) for k, v in tr["split"].items()},
-            "profiled_step": {"wall_ms": p[0], "device_busy_ms": p[1],
-                              "device_idle_share": 1 - p[1] / p[0],
-                              "top_kernels_ms": p[2]}}
+            "profiled_step": _profile_report(tr["prof"])}
 
 
 def _serve_report(sv, card):
-    p = sv["prof"]
     return {"stages_ms_p50": {k: _median(v) for k, v in sv["stages"].items()},
-            "profiled_request": {"wall_ms": p[0], "device_busy_ms": p[1],
-                                 "device_idle_share": 1 - p[1] / p[0],
-                                 "top_kernels_ms": p[2]},
-            "card": card}
+            "profiled_request": _profile_report(sv["prof"]), "card": card}
 
 
 def main() -> int:
@@ -579,7 +599,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(root))
 
-    from horizongs_tpu_torch import kernels
     from horizongs_tpu_torch.config import make_optim
     from horizongs_tpu_torch.data.synthetic import (
         lookat_camera, orbit_cameras, random_gaussians)
@@ -587,7 +606,8 @@ def main() -> int:
     from horizongs_tpu_torch.models.anchors import init_anchor_state_from_points
     from horizongs_tpu_torch.models.config import ModelConfig
     from horizongs_tpu_torch.models.mlp import init_mlps
-    from horizongs_tpu_torch.ops import raster2d, raster3d, raster_cuda
+    from horizongs_tpu_torch.ops import (
+        grid_overhead, raster2d, raster3d, raster_cuda)
     from horizongs_tpu_torch.ops.raster_cuda import (
         build_raster_inputs, build_raster_inputs_2dgs, count_instances_2dgs,
         suggest_instance_cap)
@@ -595,7 +615,11 @@ def main() -> int:
         count_render_instances, decode_view, render)
     K1, K2 = raster3d.KERNEL, raster3d.KERNEL_BWD
     K3, K4 = raster2d.KERNEL_2D, raster2d.KERNEL_2D_BWD
-    ALL = (K1, K2, K3, K4)
+    T1, T2 = raster3d.KERNEL_PERSISTENT, raster3d.KERNELS_BWD_VARIANT
+    T3 = grid_overhead.KERNELS
+    TOOLS = (T1, *T2.values(), *T3.values())
+    ALL = (K1, K2, K3, K4, *TOOLS)
+    NO_TOOLS = (0,) * len(TOOLS)
 
     # 1. device --------------------------------------------------------------
     card = _smi("name,power.limit")
@@ -608,14 +632,17 @@ def main() -> int:
     disable_tf32()
     torch.set_grad_enabled(False)   # serving is forward only; 6. turns it on
 
-    # 2. build: one nvcc per source, started together ---------------------
-    names = ["raster3d_fwd", "raster3d_bwd", "raster2d_fwd", "raster2d_bwd"]
+    # 2. build: one nvcc per library, started together --------------------
+    to_build = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "T1": T1,
+                **{f"T2 {v}": T2[v] for v in raster3d.VARIANTS[1:]},
+                "T3": T3["empty"]}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        built = dict(zip(names, pool.map(kernels.build, names)))
-    print(f"build K1-K4: {time.perf_counter() - t0:.2f} s")
-    for name, b in built.items():
-        print(f"build {name}: {b.seconds:.2f} s -> {b.path.name}")
+    with ThreadPoolExecutor(len(to_build)) as pool:
+        built = dict(zip(to_build, pool.map(lambda k: k.build(),
+                                            to_build.values())))
+    print(f"build K1-K4, T1-T3: {time.perf_counter() - t0:.2f} s")
+    for label, b in built.items():
+        print(f"build {label}: {b.seconds:.2f} s -> {b.path.name}")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
@@ -630,6 +657,7 @@ def main() -> int:
     _require(int(ri.inst.n_dropped) == 0, "instances dropped")
     k_args = (ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
               ri.grid.n_tiles_x, ri.grid.n_tiles_y)
+    k1_args_256 = k_args                              # T1 is held to K1 here
     kern = raster3d.rasterize_fwd(*k_args)
     torch.cuda.synchronize()
     ok, errs = _compare_k1(kern, raster3d.rasterize_fwd_plain(*k_args),
@@ -733,7 +761,7 @@ def main() -> int:
     n_inst = [count_render_instances(c, cfg, mlps, state) for c in cams]
     cap = suggest_instance_cap(max(n_inst), margin=1.15)
     sv = _serve(cams, cfg, mlps, state, bg, cap, build_raster_inputs,
-                raster3d.rasterize_fwd, ALL, (n_views, 0, 0, 0))
+                raster3d.rasterize_fwd, ALL, (n_views, 0, 0, 0, *NO_TOOLS))
     alpha_mean = sum(float(p["render_alphas"].mean())
                      for p in sv.pop("pkgs")) / n_views
     p50 = _median(sv["view_ms"])
@@ -760,6 +788,7 @@ def main() -> int:
                              cap=cap)
     k_args = (ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
               ri.grid.n_tiles_x, ri.grid.n_tiles_y)
+    k1_args_1080 = k_args
     kern = raster3d.rasterize_fwd(*k_args)
     plain = raster3d.rasterize_fwd_plain(*k_args)
     torch.cuda.synchronize()
@@ -787,7 +816,7 @@ def main() -> int:
     cap2 = suggest_instance_cap(max(n_inst2), margin=1.15)
     sv2 = _serve(cams2d, cfg2d, mlps, state, bg, cap2,
                  build_raster_inputs_2dgs, raster2d.rasterize2d_fwd, ALL,
-                 (0, 0, n_views_2d, 0))
+                 (0, 0, n_views_2d, 0, *NO_TOOLS))
     alpha_mean2 = sum(float(p["render_alphas"].mean())
                       for p in sv2.pop("pkgs")) / n_views_2d
 
@@ -883,10 +912,17 @@ def main() -> int:
 
     # 6. training 3DGS: 2 + 20 steps at 1920x1088 ---------------------------
     torch.set_grad_enabled(True)
-    tr = _train(cfg, make_optim(start_stat=0), state, mlps, cams[0], bg, cap,
-                live, "rasterize_bwd", ALL, (1, 1, 0, 0))
+    # update_interval, success_threshold and min_opacity are read by
+    # densification only (phase 9): with 20 and 0.5, 22 steps pass its
+    # statistics gates; with random weights an anchor's mean opacity is
+    # rarely below the default 0.005, so anchors below 0.1 are pruned
+    opt3d = make_optim(start_stat=0, update_interval=20,
+                       success_threshold=0.5, min_opacity=0.1)
+    tr = _train(cfg, opt3d, state, mlps, cams[0], bg, cap, live,
+                "rasterize_bwd", ALL, (1, 1, 0, 0, *NO_TOOLS))
     # K2 at the main path's shapes: the first timed step's inputs
     b_args = tr.pop("captured")
+    k2_args_1080 = b_args
     f, gid, starts, ntx, nty = (b_args[0], b_args[1], b_args[2], b_args[7],
                                 b_args[8])
     grad_k = raster3d.rasterize_bwd(*b_args)
@@ -918,7 +954,8 @@ def main() -> int:
     opt2d = make_optim(start_stat=0, lambda_normal=0.05, normal_start_iter=0,
                        lambda_dist=0.01, dist_start_iter=0)
     tr2 = _train(cfg2d, opt2d, state, mlps, cams2d[0], bg, cap2, live,
-                 "rasterize2d_bwd", ALL, (0, 0, 1, 1))
+                 "rasterize2d_bwd", ALL, (0, 0, 1, 1, *NO_TOOLS))
+    tr2.pop("state")
     # K4 at the main path's shapes: the first timed step's inputs and
     # cotangents (the median's and the distortion's included)
     b_args = tr2.pop("captured")
@@ -954,7 +991,142 @@ def main() -> int:
         (K4_FP32_WALKED * k4_walked + K4_FP32_CONTRIB * k4_contrib)
         / fp32_rate)
 
-    # 8. report ----------------------------------------------------------------
+    # 8. tools: T1-T3 ---------------------------------------------------------
+    from horizongs_tpu_torch.tools.fused_fwd import (
+        check_schedules, equal_l_workloads, time_schedules, workload_args)
+    from horizongs_tpu_torch.tools.profile_bwd_variants import (
+        bwd_scene, time_variants)
+    from horizongs_tpu_torch.tools.profile_grid_overhead import (
+        graph_times, overhead_table, ring_size)
+    torch.set_grad_enabled(False)
+    t_tools = time.perf_counter()
+    _reset(ALL)
+    # T1 against K1, bit for bit: each schedule launched twice
+    t1_mism = {"256x256": check_schedules(k1_args_256),
+               "1920x1088": check_schedules(k1_args_1080)}
+    print(f"T1 vs K1, elements that differ per schedule and launch: "
+          f"{json.dumps(t1_mism)}")
+    _require(not any(n for d in t1_mism.values() for ns in d.values()
+                     for n in ns), "T1 differs from K1")
+    ref = raster3d.rasterize_fwd(*k1_args_1080)
+    got = raster3d.rasterize_fwd_persistent(*k1_args_1080)
+    t1_err = max(float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2]))
+    t1_times = {"256x256": time_schedules(k1_args_256),
+                "1920x1088": time_schedules(k1_args_1080)}
+    t1_sweep = []
+    for L, f_np, st_np in equal_l_workloads(60, 34):
+        a = workload_args(f_np, st_np, 60, 34, dev)
+        mism = check_schedules(a, launches=1)
+        _require(not any(n for ns in mism.values() for n in ns),
+                 f"T1 differs from K1 on the L={L} workload")
+        t1_sweep.append({"L": L, "chunks": 2040 * L, **time_schedules(a)})
+        del a
+    print(f"T1 ms by schedule: {json.dumps(t1_times)}; equal-L sweep "
+          f"{json.dumps(t1_sweep)}")
+    # T2: the five variants on the JAX tool's scene and the first training
+    # step's K2 inputs; "full" against K2
+    scene_args, scene_ri = bwd_scene(device=dev)
+    t2 = {"scene": time_variants(scene_args),
+          "flagship": time_variants(k2_args_1080)}
+    t2_err = {}
+    for name, a in (("scene", scene_args), ("flagship", k2_args_1080)):
+        ok, t2_err[name] = _compare_k2(
+            raster3d.rasterize_bwd_variant("full", *a),
+            raster3d.rasterize_bwd(*a))
+        _require(ok, f"T2 full disagrees with K2 on the {name} inputs")
+    # no_color adds the six geometric gradients only, the others none
+    stripped = {}
+    for v in raster3d.VARIANTS[1:]:
+        out = raster3d.rasterize_bwd_variant(v, *k2_args_1080)
+        stripped[v] = float((out[:, 6:] if v == "no_color" else out)
+                            .abs().max())
+    _require(max(stripped.values()) == 0, f"a stripped variant stored "
+             f"gradients it does not form: {stripped}")
+    print(f"T2 ({int(scene_ri.inst.n_instances)} instances in the tool's "
+          f"scene): {json.dumps(t2)}; full vs K2 {json.dumps(t2_err)}")
+    occ = t2["flagship"]["blocks_per_sm"]
+    _require(len(set(occ.values())) == 1, f"a T2 variant runs at another "
+             f"occupancy than K2: {occ} blocks per SM")
+    # T3: device us per block, zero_() beside write
+    t3 = overhead_table(dev)
+    t3_2040 = next(r for r in t3 if r["blocks"] == 2040)
+    _require(t2["flagship"]["ms"]["walk_only"] * 1e3
+             > t3_2040["empty"]["device_us"],
+             "T2 walk_only is no slower than an empty grid: its work was "
+             "compiled away")
+    inst = torch.randn((grid_overhead.ROWS, 4096),
+                       generator=torch.Generator().manual_seed(6)).to(dev)
+    out = torch.empty((2040, grid_overhead.ROWS, grid_overhead.P), device=dev)
+    t3_err = {
+        "write": float((grid_overhead.write(out) - grid_overhead.write_plain(
+            2040, dev)).abs().max()),
+        "one_copy": float((grid_overhead.one_copy(inst, out)
+                           - grid_overhead.one_copy_plain(inst, 2040))
+                          .abs().max())}
+    _require(max(t3_err.values()) == 0, f"T3 disagrees with plain: {t3_err}")
+    # the plain versions allocate their output: keep the last ones alive,
+    # so that each call writes a buffer of a ring, as the kernels do
+    held = collections.deque(maxlen=ring_size(2040, dev))
+    plain_fns = {"write": lambda: held.append(
+                     grid_overhead.write_plain(2040, dev)),
+                 "one_copy": lambda: held.append(
+                     grid_overhead.one_copy_plain(inst, 2040))}
+    t3_plain_ms = {"empty": None}                  # nothing to compute
+    for k, fn in plain_fns.items():
+        t3_plain_ms[k] = graph_times(fn)["launch_us"] / 1e3
+        held.clear()
+    print(f"T3 table: {json.dumps(t3)}")
+    tool_launches = _counts(TOOLS)
+    _require(min(tool_launches) > 0, f"a tool kernel was never launched: "
+             f"{tool_launches}")
+    tools_s = time.perf_counter() - t_tools
+
+    # 9. densify: one coarse epoch of the trained 3DGS state -----------------
+    from horizongs_tpu_torch.convert import (
+        train_state_to_device, train_state_to_numpy)
+    from horizongs_tpu_torch.train.densify import run_densify
+    from horizongs_tpu_torch.train.step import build_train_step
+    ts, ct, it = tr.pop("state"), tr.pop("camera"), tr.pop("iteration")
+    host = train_state_to_device(ts, "cpu")
+    dens = []
+    for _ in range(2):        # the first epoch also pays first-use costs
+        rep = {}
+        ts_d = run_densify(cfg, opt3d, ts, it, stage="coarse", report=rep)
+        dens.append(rep)
+    rep_h = {}
+    ts_h = run_densify(cfg, opt3d, host, it, stage="coarse", report=rep_h)
+    want = dict(_flat_leaves(train_state_to_numpy(ts_h)))
+    differ = [k for k, v in _flat_leaves(train_state_to_numpy(ts_d))
+              if not (v.shape == want[k].shape and (v == want[k]).all())]
+    print(f"densify: {ts.n} anchors -> {ts_d.n} (+{rep['added']} "
+          f"-{rep['pruned']}), capacity {ts.params.anchor.shape[0]} -> "
+          f"{ts_d.params.anchor.shape[0]}; card epochs {json.dumps(dens)}, "
+          f"CPU copy {json.dumps(rep_h)}; leaves that differ: {differ}")
+    _require(rep["added"] >= 1 and rep["pruned"] >= 1,
+             "the densify epoch grew or pruned nothing")
+    _require(not differ, f"densify on the card differs from the CPU copy: "
+             f"{differ}")
+    torch.set_grad_enabled(True)
+    cap_d = suggest_instance_cap(count_render_instances(
+        cams[0], cfg, ts_d.params.mlps, ts_d.anchor_state()), margin=1.15)
+    step_d = build_train_step(cfg, opt3d, H, W, add_prefilter=True,
+                              rasterizer="cuda", instance_cap=cap_d)
+    _reset(ALL)
+    losses_d, dropped_d, step_ms_d = [], [], []
+    for _ in range(5):
+        it += 1
+        t0 = time.perf_counter()
+        ts_d, m = step_d(ts_d, ct, it)
+        losses_d.append(float(m["loss"]))             # synchronises
+        step_ms_d.append((time.perf_counter() - t0) * 1e3)
+        dropped_d.append(int(m["n_dropped"]))
+    launches_d = _counts(ALL)
+    _require(launches_d == (5, 5, 0, 0, *NO_TOOLS),
+             f"after densify, kernels launched {launches_d} in 5 steps")
+    _require(all(math.isfinite(x) for x in losses_d), f"loss {losses_d}")
+    _require(max(dropped_d) == 0, f"instances dropped: {dropped_d}")
+
+    # 10. report -------------------------------------------------------------
     paths = {"serve_3dgs": sv["launches"], "train_3dgs": tr["launches"],
              "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"]}
 
@@ -983,6 +1155,88 @@ def main() -> int:
     print(json.dumps(_slice_report(
         "train 1920x1088 flagship LOD 2DGS, normal + distortion (cuda)",
         card, tr2, cap2)))
+    print(json.dumps({
+        "slice": "densify 1920x1088 flagship LOD, one coarse epoch (cuda)",
+        "card": card, "anchors_before": ts.n, "anchors_after": ts_d.n,
+        "added": rep["added"], "pruned": rep["pruned"],
+        "capacity_before": ts.params.anchor.shape[0],
+        "capacity_after": ts_d.params.anchor.shape[0],
+        "epoch_ms_by_phase": dens, "cpu_copy_epoch_ms_by_phase": rep_h,
+        "instance_cap_after": cap_d, "losses_after": losses_d,
+        "step_ms_after": step_ms_d,
+        "launches_after": dict(zip(("K1", "K2", "K3", "K4"),
+                                   launches_d[:4]))}))
+    print(json.dumps({"slice": "tools T1-T3 (cuda)", "card": card,
+                      "seconds": tools_s,
+                      "T1_ms": t1_times, "T1_equal_l_sweep": t1_sweep,
+                      "T2_ms": t2, "T3_table": t3}))
+
+    def tool_paths(j):
+        return {**{p: n[4 + j] for p, n in paths.items()},
+                "tools": tool_launches[j]}
+
+    f2, n_pix2_3d = k2_args_1080[0], k2_args_1080[7] * k2_args_1080[8] * \
+        raster3d.P
+    t2_entries = []
+    for j, v in enumerate(raster3d.VARIANTS):
+        sfu_c, fp32_c = T2_CONTRIB_OPS[v]
+        # fields, ids and tile starts read once and 32 B per pixel; only
+        # the variants that add gradients write the field gradient
+        t2_bytes = (f2.numel() * 4 * (2 if v in ("full", "no_color") else 1)
+                    + int(k2_args_1080[2][-1]) * 4
+                    + k2_args_1080[2].numel() * 4 + n_pix2_3d * 32)
+        b_ms, b_by = _bound(
+            t2_bytes / HBM_BYTES_PER_S,
+            (K2_SFU_WALKED * k2_walked + sfu_c * k2_contrib) / sfu_rate,
+            (K2_FP32_WALKED * k2_walked + fp32_c * k2_contrib) / fp32_rate)
+        t2_entries.append({
+            "name": f"raster3d_bwd {v} (T2)", "route": "cuda",
+            "source": "horizongs_tpu_torch/csrc/raster3d_bwd.cu"
+                      + ("" if v == "full" else f" -DK2_VARIANT={j}"),
+            "replaces": "tools/profile_bwd_variants.py:187",
+            "launches": tool_launches[1 + j],
+            "launches_by_path": tool_paths(1 + j),
+            "max_abs_err": (t2_err["flagship"]["max_abs_err"] if v == "full"
+                            else stripped[v]),
+            "tolerance": {"full": f"per field {K2_TOL} x max |grad| "
+                                  "against K2",
+                          "no_color": "colour and depth gradients all "
+                                      "zeros"}.get(v, "stores nothing: "
+                                                      "output all zeros"),
+            "ms": t2["flagship"]["ms"][v],
+            "minus_full_ms": t2["flagship"]["minus_full_ms"][v],
+            "scene_ms": t2["scene"]["ms"][v],
+            "blocks_per_sm": t2["flagship"]["blocks_per_sm"][v],
+            "pad_bytes": t2["flagship"]["pad_bytes"][v],
+            # a stripped variant computes no function: it has no plain
+            # version
+            "plain_ms": k2_plain_ms if v == "full" else None,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "card": card})
+    t3_bytes = {"empty": 0,
+                "write": 2040 * grid_overhead.ROWS * grid_overhead.P * 4,
+                "one_copy": (2040 * grid_overhead.ROWS * grid_overhead.P * 4
+                             + grid_overhead.ROWS * grid_overhead.COPY_COLS
+                             * 4)}
+    t3_entries = [{
+        "name": f"grid_overhead {k} (T3)", "route": "cuda",
+        "source": "horizongs_tpu_torch/csrc/grid_overhead.cu",
+        "replaces": "tools/profile_grid_overhead.py:40",
+        "launches": tool_launches[1 + len(raster3d.VARIANTS) + j],
+        "launches_by_path": tool_paths(1 + len(raster3d.VARIANTS) + j),
+        "max_abs_err": t3_err.get(k, 0.0),
+        "tolerance": "exactly equal" if k != "empty" else "no output",
+        # launch to launch from a CUDA graph: the kernel's own time ends
+        # before L2 has written its last bytes back
+        "ms": t3_2040[k]["launch_us"] / 1e3,
+        "kernel_ms": t3_2040[k]["device_us"] / 1e3,
+        "device_us_per_block": t3_2040[k]["device_us_per_block"],
+        "host_us_per_launch": t3_2040[k]["host_us_per_launch"],
+        "blocks": 2040, "plain_ms": t3_plain_ms[k],
+        "bound_ms": t3_bytes[k] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": (t3_2040["zero_"]["launch_us"] / 1e3
+                       if k == "write" else None),
+        "card": card} for j, k in enumerate(("empty", "write", "one_copy"))]
     print(json.dumps({"kernels": [{
         "name": "raster3d_fwd (K1)", "route": "cuda",
         "source": "horizongs_tpu_torch/csrc/raster3d_fwd.cu",
@@ -1039,7 +1293,20 @@ def main() -> int:
         "bound_by": k4_bound_by, "library_ms": None,
         "walked_pairs": k4_walked, "contributing_pairs": k4_contrib,
         "instances": k4_inst, "sm_clock_mhz": sm_clock_hz / 1e6,
-        "card": card}]}))
+        "card": card}, {
+        "name": "raster3d_fwd_persistent (T1)", "route": "cuda",
+        "source": "horizongs_tpu_torch/csrc/raster3d_fwd_persistent.cu",
+        "replaces": "tools/experiment_fused_fwd.py:162",
+        "launches": tool_launches[0], "launches_by_path": tool_paths(0),
+        "max_abs_err": t1_err,
+        "tolerance": "bit for bit K1's acc, log T, i_fin and n_contrib",
+        "ms": t1_times["1920x1088"]["dynamic"],
+        "ms_static": t1_times["1920x1088"]["static"],
+        "k1_ms_same_inputs": t1_times["1920x1088"]["k1"],
+        "grid": t1_times["1920x1088"]["grid"],
+        "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
+        "bound_by": k1_bound_by, "library_ms": None, "card": card},
+        *t2_entries, *t3_entries]}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

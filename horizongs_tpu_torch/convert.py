@@ -6,12 +6,14 @@ The JAX package keeps its model as pytrees (`TrainableParams`,
 the port's `AnchorState`, `MlpDecoders` and `TrainState` with the same
 values, so both packages compute the same thing; `train_state_to_numpy`
 gives the port's state back in the JAX package's layout, so the two can
-be compared after a step. The decoders' weights are stored (in, out) in
+be compared after a step; `train_state_to_device` copies a state to
+another device. The decoders' weights are stored (in, out) in
 both, so the copy is plain. Nothing here imports JAX: the caller turns its
 arrays into numpy (`jax.tree.map(np.asarray, ...)`) first.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -132,10 +134,36 @@ def train_state_to_numpy(ts: TrainState) -> dict:
     """The port's state as nested dicts of numpy arrays in the JAX
     package's layout: {"params", "mu", "nu"} each keyed by the
     `TrainableParams` fields (MLPs as {"l1": {"w", "b"}, "l2": ...}),
-    "t", and "stats" keyed by the `DensifyStats` fields."""
+    "t", "stats" keyed by the `DensifyStats` fields, and the `TrainState`
+    fields rotation, level, extra_level and n."""
     return {"params": _groups_to_numpy(ts.params.groups()),
             "mu": _groups_to_numpy(ts.opt.mu),
             "nu": _groups_to_numpy(ts.opt.nu),
             "t": ts.opt.t,
             "stats": {f: getattr(ts.stats, f).detach().cpu().numpy()
-                      for f in DensifyStats._fields}}
+                      for f in DensifyStats._fields},
+            "rotation": ts.rotation.detach().cpu().numpy(),
+            "level": ts.level.detach().cpu().numpy(),
+            "extra_level": ts.extra_level.detach().cpu().numpy(),
+            "n": int(ts.n)}
+
+
+def train_state_to_device(ts: TrainState, device: DeviceLike) -> TrainState:
+    """A copy of the state on `device`: tables as new leaves that require
+    grad, the decoders deep-copied, moments and statistics copied."""
+    dev = torch.device(device)
+
+    def mv(t):
+        return t.detach().to(dev, copy=True)
+
+    p = ts.params
+    params = TrainableParams(
+        **{k: mv(getattr(p, k)).requires_grad_(True) for k in _TABLES},
+        mlps=copy.deepcopy(p.mlps).to(dev))
+    opt = AdamState(mu={k: [mv(t) for t in v] for k, v in ts.opt.mu.items()},
+                    nu={k: [mv(t) for t in v] for k, v in ts.opt.nu.items()},
+                    t=ts.opt.t)
+    return TrainState(params=params, rotation=mv(ts.rotation),
+                      level=mv(ts.level), extra_level=mv(ts.extra_level),
+                      n=ts.n, opt=opt,
+                      stats=DensifyStats(*(mv(a) for a in ts.stats)))

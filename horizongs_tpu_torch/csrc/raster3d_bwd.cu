@@ -54,8 +54,45 @@
 // 40 B gradient row per gaussian; the atomics add at most 40 B per
 // instance. The ten-value warp reduction (50 shuffles per warp and
 // gaussian) is the overhead this simple design pays above the bound.
+//
+// T2, the cost attribution of K2 (the counterpart of the Pallas tool
+// tools/profile_bwd_variants.py `make_bwd`, whose stripped kernels are
+// timed beside the full one), is this source built with -DK2_VARIANT=<n>;
+// the default build (no define) is K2 and contains none of it:
+//   1 no_atomic  the gradients are formed but not added to grad_fields
+//                (the TPU tool's no_write);
+//   2 no_color   dL/dw takes the alpha row only and the four colour/depth
+//                sums are not formed (the counterpart of no_dots);
+//   3 no_reduce  no warp shuffles and no s_part partials, so no per-
+//                gaussian sums and no atomics (no_scan's cross-lane work);
+//   4 walk_only  the alpha recompute and the log T walk only.
+// The compiler deletes work whose result is never stored, so a variant that
+// drops a store keeps its result alive with a store guarded by `sentinel`,
+// a runtime argument it cannot predict (the wrapper passes NaN, which no
+// sum equals, so the store never happens). The variant's entry point is
+// raster3d_bwd_variant, with sentinel before the stream.
+// A variant that needs fewer registers or less shared memory than K2 would
+// keep more blocks resident per SM (by ptxas: K2 79 registers and 46.6 KB,
+// 3 blocks; no_color 63 registers, 4; walk_only 32 registers and 5.1 KB,
+// 8), and the time it saves would then mix the work it leaves out with
+// the latency that more resident warps hide. So every build exports
+// raster3d_bwd_occupancy, and the variant's launch reserves the dynamic
+// shared memory (unused) that holds it to K2's blocks per SM.
 
 #include <cuda_runtime.h>
+
+#ifndef K2_VARIANT
+#define K2_VARIANT 0
+#endif
+
+#if K2_VARIANT
+#define K2_SENTINEL_PARAM , float sentinel
+// a variant leaves some of K2's values unused on purpose
+#pragma nv_diag_suppress 177
+#pragma nv_diag_suppress 550
+#else
+#define K2_SENTINEL_PARAM
+#endif
 
 namespace {
 
@@ -69,6 +106,9 @@ constexpr int kPixPerThread = kPixels / kThreads;  // 4
 constexpr int kFields = 10;
 constexpr int kAccRows = 5;
 constexpr int kSums = 10;
+// the sums a gaussian's gradient is formed from: no_color drops the four
+// w * d_acc colour/depth rows
+constexpr int kUsedSums = K2_VARIANT == 2 ? 6 : kSums;
 constexpr float kAlphaCutoff = 1.0f / 255.0f;
 constexpr float kMaxAlpha = 0.999f;
 
@@ -91,7 +131,7 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
                     const float* __restrict__ log_t,
                     const int* __restrict__ n_contrib,
                     int n_tiles_x,
-                    float* __restrict__ grad_fields) {
+                    float* __restrict__ grad_fields K2_SENTINEL_PARAM) {
   __shared__ float s_f[kFields][kChunk];
   __shared__ int s_id[kChunk];
   // partial sums per (sum, warp, gaussian of the chunk): 40 KB
@@ -115,6 +155,9 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
   float gd[kPixPerThread], ga[kPixPerThread];
   int nc[kPixPerThread];
   int my_walk = 0;
+#if K2_VARIANT == 3 || K2_VARIANT == 4
+  float keep = 0.0f;                     // the result kept alive
+#endif
   const size_t pix0 = static_cast<size_t>(t) * kPixels;
   const float* g_t = d_acc + static_cast<size_t>(t) * kAccRows * kPixels;
 #pragma unroll
@@ -177,9 +220,16 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
         const float alpha = fminf(raw, kMaxAlpha);
         if (!(alpha >= kAlphaCutoff)) continue;   // K1 skipped it too
         const float before = logT[k] - log1pf(-alpha);
+#if K2_VARIANT == 4
+        logT[k] = before;
+#else
         const float w = alpha * expf(before);
+#if K2_VARIANT == 2
+        const float dw = ga[k];
+#else
         const float dw = gr[k] * cr + gg[k] * cg + gb[k] * cb + gd[k] * cd
                          + ga[k];
+#endif
         const float wdw = w * dw;
         const float dsig =
             raw < kMaxAlpha ? S[k] * (alpha / (1.0f - alpha)) - wdw : 0.0f;
@@ -191,24 +241,33 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
         q[3] += u * dx;
         q[4] += u * dy;
         q[5] += v * dy;
+#if K2_VARIANT != 2
         q[6] += w * gr[k];
         q[7] += w * gg[k];
         q[8] += w * gb[k];
         q[9] += w * gd[k];
+#endif
         S[k] += wdw;
         logT[k] = before;
         any = true;
+#endif  // K2_VARIANT == 4
       }
+#if K2_VARIANT == 3
+#pragma unroll
+      for (int r = 0; r < kSums; ++r) keep += q[r];
+#elif K2_VARIANT != 4
       if (__any_sync(0xffffffffu, any)) {
 #pragma unroll
-        for (int r = 0; r < kSums; ++r) q[r] = warp_sum(q[r]);
+        for (int r = 0; r < kUsedSums; ++r) q[r] = warp_sum(q[r]);
       }
       if (lane == 0) {
 #pragma unroll
-        for (int r = 0; r < kSums; ++r) s_part[r][warp][j] = q[r];
+        for (int r = 0; r < kUsedSums; ++r) s_part[r][warp][j] = q[r];
       }
+#endif
     }
     __syncthreads();
+#if K2_VARIANT != 3 && K2_VARIANT != 4
 
     if (tid < m) {
       const int j = tid;
@@ -216,8 +275,10 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
 #pragma unroll
       for (int r = 0; r < kSums; ++r) {
         float acc = 0.0f;
+        if (r < kUsedSums) {
 #pragma unroll
-        for (int w = 0; w < kWarps; ++w) acc += s_part[r][w][j];
+          for (int w = 0; w < kWarps; ++w) acc += s_part[r][w][j];
+        }
         s[r] = acc;
       }
       const float a = s_f[2][j], b = s_f[3][j], c = s_f[4][j];
@@ -234,11 +295,26 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
       g[8] = s[8];
       g[9] = s[9];
       float* out = grad_fields + static_cast<size_t>(s_id[j]) * kFields;
+#if K2_VARIANT == 1
+      float sum = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kFields; ++r) sum += g[r];
+      if (sum == sentinel) out[0] = sum;
+#else
 #pragma unroll
       for (int r = 0; r < kFields; ++r)
         if (g[r] != 0.0f) atomicAdd(out + r, g[r]);
+#endif
     }
+#endif  // K2_VARIANT != 3 && K2_VARIANT != 4
   }
+#if K2_VARIANT == 4
+#pragma unroll
+  for (int k = 0; k < kPixPerThread; ++k) keep += logT[k];
+#endif
+#if K2_VARIANT == 3 || K2_VARIANT == 4
+  if (keep == sentinel) grad_fields[0] = keep;
+#endif
 }
 
 }  // namespace
@@ -249,6 +325,7 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
 // (n_tiles + 1,) int32, d_acc (n_tiles, 5, 1024), d_logT and log_t
 // (n_tiles, 1024) float32, n_contrib (n_tiles, 1024) int32, and
 // grad_fields (N, 10) float32, zeroed by the caller and added into.
+#if K2_VARIANT == 0
 extern "C" int raster3d_bwd(const float* fields, const int* gauss_id,
                             const int* tile_starts, const float* d_acc,
                             const float* d_logT, const float* log_t,
@@ -260,4 +337,62 @@ extern "C" int raster3d_bwd(const float* fields, const int* gauss_id,
       fields, gauss_id, tile_starts, d_acc, d_logT, log_t, n_contrib,
       n_tiles_x, grad_fields);
   return static_cast<int>(cudaGetLastError());
+}
+#else
+// The T2 variant K2_VARIANT: K2's arguments, then `sentinel` (see the
+// header comment) and `pad`, the bytes of dynamic shared memory each block
+// reserves and leaves unused (raster3d_bwd_occupancy), then the stream.
+extern "C" int raster3d_bwd_variant(const float* fields, const int* gauss_id,
+                                    const int* tile_starts,
+                                    const float* d_acc, const float* d_logT,
+                                    const float* log_t, const int* n_contrib,
+                                    int n_tiles, int n_tiles_x,
+                                    float* grad_fields, float sentinel,
+                                    int pad, void* stream) {
+  if (pad > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        raster3d_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        pad);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  raster3d_bwd_kernel<<<n_tiles, kThreads, pad,
+                        static_cast<cudaStream_t>(stream)>>>(
+      fields, gauss_id, tile_starts, d_acc, d_logT, log_t, n_contrib,
+      n_tiles_x, grad_fields, sentinel);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
+
+// The blocks of this build's kernel (K2, or the T2 variant) resident per SM
+// on the current device, written to *blocks, with *pad bytes of dynamic
+// shared memory per block: the least pad that holds it to at most `target`
+// blocks per SM, or 0 when target <= 0. Returns the first failing runtime
+// call's error as an int (0 = success). Launches nothing.
+extern "C" int raster3d_bwd_occupancy(int target, int* pad, int* blocks) {
+  int device = 0, optin = 0;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, raster3d_bwd_kernel);
+  int lo = 0;
+  int hi = target > 0 ? optin - static_cast<int>(attr.sharedSizeBytes) : 0;
+  if (err == cudaSuccess && hi > 0)
+    err = cudaFuncSetAttribute(
+        raster3d_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hi);
+  // blocks per SM fall as the pad grows: the least pad with <= target
+  while (err == cudaSuccess && lo < hi) {
+    const int mid = lo + (hi - lo) / 2;
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, raster3d_bwd_kernel, kThreads, mid);
+    if (n <= target) hi = mid; else lo = mid + 1;
+  }
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, raster3d_bwd_kernel, kThreads, lo);
+  *pad = lo;
+  return static_cast<int>(err);
 }

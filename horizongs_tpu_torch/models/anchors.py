@@ -248,3 +248,38 @@ def init_anchor_state_from_points(
         extra_level=torch.zeros((C,), dtype=torch.float32, device=dev),
         n=int(n),
     )
+
+
+def weed_out_mask(cfg: ModelConfig, positions: np.ndarray, levels: np.ndarray,
+                  cam_infos: np.ndarray, weed_ratio: float) -> np.ndarray:
+    """`weed_out`: keep anchors visible (by the LOD distance rule) from
+    more than `weed_ratio` of the training cameras. cam_infos: (M, 4) rows
+    of [cam_center_xyz, resolution_scale]. Host-side numpy, the JAX
+    package's arithmetic in its order; the cameras go in batches that bound
+    each (B, N) distance matrix at about 64 MB."""
+    if weed_ratio <= 0 or len(cam_infos) == 0:
+        return np.ones(positions.shape[0], dtype=bool)
+    N = positions.shape[0]
+    count = np.zeros(N, dtype=np.int64)
+    logfork = math.log2(cfg.fork)
+    cam_infos = np.asarray(cam_infos, dtype=np.float32)
+    batch = max(1, int(16_000_000 // max(N, 1)))
+    for s in range(0, len(cam_infos), batch):
+        centers = cam_infos[s:s + batch, :3]                 # (B, 3)
+        scales = cam_infos[s:s + batch, 3:4]                 # (B, 1)
+        d = positions[None, :, :] - centers[:, None, :]      # (B, N, 3)
+        dist = np.clip(np.sqrt(np.einsum("bnd,bnd->bn", d, d)) * scales,
+                       1e-8, None)
+        pred = np.log2(cfg.standard_dist / dist) / logfork   # (B, N)
+        if cfg.dist2level == "floor":
+            int_level = np.clip(np.floor(pred), 0, cfg.street_levels - 1)
+        elif cfg.dist2level == "round":
+            int_level = np.clip(np.round(pred), 0, cfg.street_levels - 1)
+        elif cfg.dist2level == "ceil":
+            int_level = np.clip(np.ceil(pred), 0, cfg.street_levels - 1)
+        else:  # progressive
+            p = np.clip(pred + 1.0, 0.9999, cfg.street_levels - 1 + 0.9999)
+            int_level = np.floor(p)
+        count += (levels[None, :] <= int_level).sum(axis=0)
+    frac = count / float(len(cam_infos))
+    return frac > weed_ratio

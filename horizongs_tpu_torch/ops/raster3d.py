@@ -33,10 +33,22 @@ pixel's reverse walk starts at its own n_contrib: a tile-wide start
 added. Gaussians that no pixel walked get exactly zero.
 Tiles are 32x32 (P = 1024 pixels, row-major), tile t at column
 t % n_tiles_x, row t // n_tiles_x.
+
+Two measurement tools live beside them. T1, `rasterize_fwd_persistent`
+(`csrc/raster3d_fwd_persistent.cu`, the counterpart of the Pallas tool
+`tools/experiment_fused_fwd.py::rasterize_fwd_fused`), computes K1's
+function bit for bit with persistent blocks that take tiles in a static or
+a dynamic schedule. T2, `rasterize_bwd_variant` (`csrc/raster3d_bwd.cu`
+built with `-DK2_VARIANT=<n>`, the counterpart of
+`tools/profile_bwd_variants.py::make_bwd`), runs K2 with parts removed to
+attribute its time, each variant held to K2's blocks per SM
+(`variant_occupancy`); the stripped variants compute nothing a caller
+uses.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -59,9 +71,35 @@ LOG_T_EPS = math.log(TRANSMITTANCE_EPS)
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("raster3d_fwd",
                     [_VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP])
-KERNEL_BWD = CudaKernel("raster3d_bwd",
-                        [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP,
-                         _VP])
+_BWD_ARGS = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP]
+KERNEL_BWD = CudaKernel("raster3d_bwd", _BWD_ARGS + [_VP])
+
+# T1: K1's arguments, the tile counter, the schedule and the grid size;
+# the slots query gives the grid
+SCHEDULES = ("static", "dynamic")
+_PINT = ctypes.POINTER(_INT)
+KERNEL_PERSISTENT = CudaKernel(
+    "raster3d_fwd_persistent",
+    [_VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _VP])
+_PERSISTENT_SLOTS = CudaKernel("raster3d_fwd_persistent_slots",
+                               [_INT, _PINT],
+                               source="raster3d_fwd_persistent")
+
+# T2: K2 with parts removed (see csrc/raster3d_bwd.cu); "full" is K2's own
+# build, launched through its own counter. The stripped variants take a
+# sentinel (NaN) that keeps their results alive and the shared memory each
+# block reserves to stay at K2's blocks per SM.
+VARIANTS = ("full", "no_atomic", "no_color", "no_reduce", "walk_only")
+KERNELS_BWD_VARIANT = {"full": CudaKernel("raster3d_bwd", _BWD_ARGS + [_VP])}
+KERNELS_BWD_VARIANT.update({
+    v: CudaKernel("raster3d_bwd_variant",
+                  _BWD_ARGS + [ctypes.c_float, _INT, _VP],
+                  source="raster3d_bwd", defines=(f"K2_VARIANT={i}",))
+    for i, v in enumerate(VARIANTS) if i > 0})
+_BWD_OCCUPANCY = {v: CudaKernel("raster3d_bwd_occupancy",
+                                [_INT, _PINT, _PINT], source="raster3d_bwd",
+                                defines=k.defines)
+                  for v, k in KERNELS_BWD_VARIANT.items()}
 
 
 def local_pixel_coords(device):
@@ -221,6 +259,61 @@ def rasterize_fwd(fields: torch.Tensor, gauss_id: torch.Tensor,
     return acc, logT, n_contrib
 
 
+def _check_schedule(schedule: str) -> None:
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}, not "
+                         f"{schedule!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _persistent_slots(schedule: str, device_index: int) -> int:
+    slots = _INT(0)
+    with torch.cuda.device(device_index):
+        _PERSISTENT_SLOTS.call(SCHEDULES.index(schedule), ctypes.byref(slots))
+    return slots.value
+
+
+def persistent_grid(n_tiles: int, schedule: str, device) -> int:
+    """T1's grid on the card `device` for n_tiles tiles: one block per
+    resident slot (blocks per SM at full occupancy x SMs), at most one per
+    tile."""
+    _check_schedule(schedule)
+    dev = torch.device(device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return min(n_tiles, max(1, _persistent_slots(schedule, index)))
+
+
+def rasterize_fwd_persistent(fields: torch.Tensor, gauss_id: torch.Tensor,
+                             tile_starts: torch.Tensor, n_tiles_x: int,
+                             n_tiles_y: int, schedule: str = "dynamic"):
+    """T1: K1's function and outputs (acc, logT, n_contrib), bit for bit
+    K1's on the card, from `persistent_grid` persistent blocks that walk
+    tiles in `schedule` ("static": strided; "dynamic": taken from a global
+    counter). For CPU tensors, K1's plain version."""
+    _check_schedule(schedule)
+    dev = fields.device
+    n_tiles = n_tiles_x * n_tiles_y
+    _check_segments(fields, gauss_id, tile_starts, n_tiles)
+    if dev.type == "cpu":
+        return rasterize_fwd_plain(fields, gauss_id, tile_starts, n_tiles_x,
+                                   n_tiles_y)
+    acc = torch.empty((n_tiles, N_ACC, P), dtype=torch.float32, device=dev)
+    logT = torch.empty((n_tiles, 2, P), dtype=torch.float32, device=dev)
+    n_contrib = torch.empty((n_tiles, P), dtype=torch.int32, device=dev)
+    if n_tiles == 0:
+        return acc, logT, n_contrib
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    grid = persistent_grid(n_tiles, schedule, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        KERNEL_PERSISTENT.launch(
+            fields.data_ptr(), gauss_id.data_ptr(), tile_starts.data_ptr(),
+            n_tiles, n_tiles_x, acc.data_ptr(), logT.data_ptr(),
+            n_contrib.data_ptr(), counter.data_ptr(),
+            SCHEDULES.index(schedule), grid, stream)
+    return acc, logT, n_contrib
+
+
 def rasterize_bwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
                         tile_starts: torch.Tensor, d_acc: torch.Tensor,
                         d_logT: torch.Tensor, logT: torch.Tensor,
@@ -278,8 +371,19 @@ def rasterize_bwd(fields: torch.Tensor, gauss_id: torch.Tensor,
                   n_tiles_y: int) -> torch.Tensor:
     """K2 (see the module docstring): the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors. Returns grad_fields (N, 10)."""
+    _check_bwd(fields, gauss_id, tile_starts, d_acc, d_logT, logT, n_contrib,
+               n_tiles_x * n_tiles_y)
+    if fields.device.type == "cpu":
+        return rasterize_bwd_plain(fields, gauss_id, tile_starts, d_acc,
+                                   d_logT, logT, n_contrib, n_tiles_x,
+                                   n_tiles_y)
+    return _launch_bwd(KERNEL_BWD, (), fields, gauss_id, tile_starts, d_acc,
+                       d_logT, logT, n_contrib, n_tiles_x, n_tiles_y)
+
+
+def _check_bwd(fields, gauss_id, tile_starts, d_acc, d_logT, logT,
+               n_contrib, n_tiles):
     dev = fields.device
-    n_tiles = n_tiles_x * n_tiles_y
     _check_segments(fields, gauss_id, tile_starts, n_tiles)
     for name, x, dtype, shape in (
             ("d_acc", d_acc, torch.float32, (n_tiles, N_ACC, P)),
@@ -288,18 +392,73 @@ def rasterize_bwd(fields: torch.Tensor, gauss_id: torch.Tensor,
             ("n_contrib", n_contrib, torch.int32, (n_tiles, P))):
         _check(name, x, dtype, len(shape), dev)
         _check_shape(name, x, shape)
-    if dev.type == "cpu":
-        return rasterize_bwd_plain(fields, gauss_id, tile_starts, d_acc,
-                                   d_logT, logT, n_contrib, n_tiles_x,
-                                   n_tiles_y)
+
+
+def _launch_bwd(kernel, extra, fields, gauss_id, tile_starts, d_acc, d_logT,
+                logT, n_contrib, n_tiles_x, n_tiles_y):
+    """K2's launch (or a T2 variant's, with `extra` arguments before the
+    stream) into a zeroed (N, 10) gradient."""
+    dev = fields.device
+    n_tiles = n_tiles_x * n_tiles_y
     grad = torch.zeros_like(fields)
     if n_tiles == 0:
         return grad
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        KERNEL_BWD.launch(fields.data_ptr(), gauss_id.data_ptr(),
-                          tile_starts.data_ptr(), d_acc.data_ptr(),
-                          d_logT.data_ptr(), logT.data_ptr(),
-                          n_contrib.data_ptr(), n_tiles, n_tiles_x,
-                          grad.data_ptr(), stream)
+        kernel.launch(fields.data_ptr(), gauss_id.data_ptr(),
+                      tile_starts.data_ptr(), d_acc.data_ptr(),
+                      d_logT.data_ptr(), logT.data_ptr(),
+                      n_contrib.data_ptr(), n_tiles, n_tiles_x,
+                      grad.data_ptr(), *extra, stream)
     return grad
+
+
+def rasterize_bwd_variant(variant: str, fields: torch.Tensor,
+                          gauss_id: torch.Tensor, tile_starts: torch.Tensor,
+                          d_acc: torch.Tensor, d_logT: torch.Tensor,
+                          logT: torch.Tensor, n_contrib: torch.Tensor,
+                          n_tiles_x: int, n_tiles_y: int) -> torch.Tensor:
+    """T2: the K2 variant `variant` (one of `VARIANTS`) on K2's arguments.
+    "full" is K2 (its plain version for CPU tensors) and returns its
+    gradient; of the stripped variants, no_color returns the six geometric
+    gradients of dL/dw without its colour and depth terms and the others
+    zeros (they store nothing). Computing no function a caller uses, the
+    stripped variants raise for CPU tensors."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, not "
+                         f"{variant!r}")
+    args = (fields, gauss_id, tile_starts, d_acc, d_logT, logT, n_contrib)
+    _check_bwd(*args, n_tiles_x * n_tiles_y)
+    if fields.device.type == "cpu":
+        if variant == "full":
+            return rasterize_bwd_plain(*args, n_tiles_x, n_tiles_y)
+        raise ValueError(f"the K2 variant {variant!r} is a measurement of "
+                         "the card and has no CPU version")
+    extra = ()
+    if variant != "full":
+        pad, _ = variant_occupancy(variant, fields.device.index)
+        extra = (ctypes.c_float(math.nan), pad)
+    return _launch_bwd(KERNELS_BWD_VARIANT[variant], extra, *args,
+                       n_tiles_x, n_tiles_y)
+
+
+@functools.lru_cache(maxsize=None)
+def variant_occupancy(variant: str, device_index: int) -> tuple:
+    """(pad, blocks per SM) of the K2 variant `variant` on the card
+    `device_index`: the bytes of dynamic shared memory each of its blocks
+    reserves, unused, so that no more of them are resident per SM than of
+    K2's, and the blocks per SM it then has. "full" is K2: pad 0 and K2's
+    own blocks per SM."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, not "
+                         f"{variant!r}")
+
+    def query(v, target):
+        pad, blocks = _INT(0), _INT(0)
+        with torch.cuda.device(device_index):
+            _BWD_OCCUPANCY[v].call(target, ctypes.byref(pad),
+                                   ctypes.byref(blocks))
+        return pad.value, blocks.value
+
+    k2 = query("full", 0)
+    return k2 if variant == "full" else query(variant, k2[1])

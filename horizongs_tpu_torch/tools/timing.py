@@ -1,0 +1,87 @@
+"""Timing on the card, for the measurement tools and `chip_smoke.py`:
+device time from CUDA events and from the profiler, launches replayed
+back to back from a CUDA graph, and the host's time per launch. Each
+needs a card: there is no time to take on the CPU."""
+from __future__ import annotations
+
+import time
+
+import torch
+
+
+def require_cuda(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        raise RuntimeError(f"timing needs a CUDA device, not {dev}")
+    return dev
+
+
+def best_ms(fn, iters: int = 20, rounds: int = 3) -> float:
+    """Best over `rounds` of the mean device time of `iters` back-to-back
+    calls of `fn` (CUDA events), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def device_profile(fn) -> dict:
+    """One call of `fn` under torch.profiler, with no warm-up call (the
+    caller makes one where it needs it): the host's wall ms ("wall_ms"),
+    the device-busy ms, the kernels' durations summed ("busy_ms"), and
+    each kernel's device ms by name ("by_name"). A call whose kernels take
+    a few microseconds costs the host about as much to launch, so CUDA
+    events around back-to-back calls would time the host; the profiler
+    reads each kernel's own start and end."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
+    if not by_name:
+        raise RuntimeError("the profiler recorded no kernel on the device")
+    return {"wall_ms": wall_ms, "busy_ms": sum(by_name.values()),
+            "by_name": by_name}
+
+
+def graphed(fn, calls: int):
+    """A function that replays `calls` calls of `fn`, captured once in a
+    CUDA graph after one warm-up call: the card then runs their kernels
+    back to back, with no host time between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return graph.replay
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host wall time per call of `fn` over `calls` calls, the queue
+    drained before and after (us)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / calls

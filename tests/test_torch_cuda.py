@@ -292,3 +292,106 @@ def test_train_step_2d_kernels_match_plain(card):
     want = raster2d.rasterize2d_bwd_plain(*captured[0])
     err = (got - want).abs().amax(0)
     assert (err <= 2e-4 * want.abs().amax(0)).all(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(64, 64), (200, 120)])
+def test_persistent_fwd_equals_k1(card, size):
+    """T1 under both schedules, launched twice each (a counter left at its
+    last value would walk nothing the second time): acc, log T, i_fin and
+    n_contrib bit for bit K1's."""
+    w, h = size
+    g = _scene(card)
+    cam = lookat_camera(width=w, height=h, eye=(0, 0, -4), device=card)
+    ri = build_raster_inputs(g["means"], g["quats"], g["scales"],
+                             g["opacities"], g["colors"], cam.viewmat, cam.K,
+                             w, h)
+    args = (ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
+            ri.grid.n_tiles_x, ri.grid.n_tiles_y)
+    ref = raster3d.rasterize_fwd(*args)
+    for schedule in raster3d.SCHEDULES:
+        for _ in range(2):
+            before = raster3d.KERNEL_PERSISTENT.launches
+            got = raster3d.rasterize_fwd_persistent(*args, schedule=schedule)
+            torch.cuda.synchronize()
+            assert raster3d.KERNEL_PERSISTENT.launches == before + 1
+            assert 0 < raster3d.persistent_grid(
+                ri.grid.n_tiles, schedule, card) <= ri.grid.n_tiles
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b), schedule
+
+
+@pytest.mark.cuda
+def test_bwd_variants(card):
+    """T2: "full" is K2 within 2e-4 x max |grad| per field; each stripped
+    variant runs at K2's blocks per SM, launches once and stores nothing,
+    but no_color, which adds the six geometric gradients only."""
+    from horizongs_tpu_torch.tools.profile_bwd_variants import bwd_scene
+    args, _ = bwd_scene(2000, 128, 96, device=card)
+    want = raster3d.rasterize_bwd(*args)
+    got = raster3d.rasterize_bwd_variant("full", *args)
+    err = (got - want).abs().amax(0)
+    assert (err <= 2e-4 * want.abs().amax(0)).all(), err
+    index = torch.cuda.current_device()
+    k2_pad, k2_blocks = raster3d.variant_occupancy("full", index)
+    assert k2_pad == 0 and k2_blocks > 0
+    for v in raster3d.VARIANTS[1:]:
+        assert raster3d.variant_occupancy(v, index)[1] == k2_blocks, v
+        k = raster3d.KERNELS_BWD_VARIANT[v]
+        before = k.launches
+        out = raster3d.rasterize_bwd_variant(v, *args)
+        torch.cuda.synchronize()
+        assert k.launches == before + 1
+        if v == "no_color":
+            assert bool(out[:, :6].any()) and not bool(out[:, 6:].any())
+        else:
+            assert not bool(out.any()), v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [3, 255])
+def test_grid_overhead_matches_plain(card, n_blocks):
+    from horizongs_tpu_torch.ops import grid_overhead as go
+    inst = torch.randn((go.ROWS, 4096), generator=torch.Generator()
+                       .manual_seed(5)).to(card)
+    out = torch.full((n_blocks, go.ROWS, go.P), 7.0, device=card)
+    go.write(out)
+    assert torch.equal(out, go.write_plain(n_blocks, card))
+    go.one_copy(inst, out)
+    assert torch.equal(out, go.one_copy_plain(inst, n_blocks))
+    before = go.KERNEL_EMPTY.launches
+    go.empty(n_blocks, card)
+    torch.cuda.synchronize()
+    assert go.KERNEL_EMPTY.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_densify_matches_cpu_copy(card):
+    """Four steps of the flagship configuration on the card (statistics
+    gates opened for them), then one coarse densify epoch on the card and
+    the same epoch on a CPU copy of the state: equal n, levels, tables,
+    moments and statistics."""
+    from horizongs_tpu_torch.convert import (
+        train_state_to_device, train_state_to_numpy)
+    from horizongs_tpu_torch.train.densify import run_densify
+    step, ts, ct = _train_setup(card, update_interval=2,
+                                success_threshold=0.5)
+    for it in range(1, 5):
+        ts, _ = step(ts, ct, it)
+    host = train_state_to_device(ts, "cpu")
+    rep_c, rep_h = {}, {}
+    out_c = run_densify(step.cfg, step.opt, ts, 4, report=rep_c)
+    out_h = run_densify(step.cfg, step.opt, host, 4, report=rep_h)
+    assert rep_c["added"] == rep_h["added"] > 0
+    assert rep_c["pruned"] == rep_h["pruned"]
+    a, b = train_state_to_numpy(out_c), train_state_to_numpy(out_h)
+
+    def flat(d, prefix=""):
+        for key, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{key}.")
+            elif v is not None:
+                yield f"{prefix}{key}", np.asarray(v)
+    want = dict(flat(b))
+    for name, got in flat(a):
+        np.testing.assert_array_equal(got, want[name], err_msg=name)
