@@ -28,7 +28,13 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                outputs finite, nothing dropped; the device time of each
                layer and one profiled request; one 256x256 view against the
                dense oracle; K1 against its plain version on the inputs of
-               a 1080p request, timed, beside its bound
+               a 1080p request, timed, beside its bound (the work its walk
+               needs given its skip tests) and the bound with every walked
+               pair computed in full, with its design's figures: ptxas's
+               registers, shared bytes and spills, blocks per SM, and from
+               the records and the plain copies of its skip tests the
+               culled warp-gaussian steps, the rejected pairs and the lane
+               efficiency (`_k12_counts`)
   5. serve 2D  the same model as surfels (`gs_attr="2D"`) answers 4 of
                those requests: K3 once per request and no other kernel,
                every output (render, depth, alphas, normals, normals from
@@ -50,7 +56,7 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                nothing dropped; the device time of forward, backward and
                update, and one profiled step; K2 against its plain version
                on the inputs and cotangents of the first timed step, timed,
-               beside its bound
+               beside its bounds, with the same design figures
   7. train 2D  the same for the surfel model with the normal and
                distortion losses on from the first step: K3 and K4 once per
                step, K4 against its plain version at 1080p, with the
@@ -94,12 +100,26 @@ from pathlib import Path
 # counting two, 128 lanes) and special-function results (exp2, log2, rcp)
 FP32_OPS_PER_SM_CLK = 256
 SFU_OPS_PER_SM_CLK = 16
-FP32_OPS_PER_PAIR = 15      # K1's arithmetic per pixel-gaussian pair
+# K1 per walked pixel-gaussian pair, with every walked pair computed in
+# full (the count before the skip tests, `bound_ms_all_exact`): one exp and
+# ~15 FP32 operations; per pair that contributes, an exp (T) and a log1p
+# and ~14 FP32 operations (csrc/raster3d_fwd.cu, "What bounds it")
+FP32_OPS_PER_PAIR = 15
+K1_SFU_CONTRIB, K1_FP32_CONTRIB = 2, 14
 # K2 per walked pair: one exp (alpha) and ~16 FP32 operations; per pair
 # that contributes (alpha >= 1/255) a log, an exp and a reciprocal more and
 # ~40 FP32 operations more (csrc/raster3d_bwd.cu, "What bounds it")
 K2_SFU_WALKED, K2_SFU_CONTRIB = 1, 3
 K2_FP32_WALKED, K2_FP32_CONTRIB = 16, 40
+# What K1's and K2's walks need, given their skip tests
+# (csrc/raster3d_common.cuh): nothing for a pair in a warp-gaussian step the
+# support box culls; for every other walked pair sigma and the rejection
+# test (dx, dy, five rounded products, two sums, the compare and the stop
+# check: ~12 FP32 operations); only for a pair the test does not reject
+# the exp of alpha, its product, cap and cut (1 SFU, ~4 FP32); then the
+# contributing work.
+K12_FP32_TESTED = 12
+K12_SFU_EXACT, K12_FP32_EXACT = 1, 4
 K2_TOL = 2e-4               # per field, times that field's max |grad|
 # K3 per walked pair: an exp (alpha), the reciprocal of each IEEE division
 # (u, v; counted once) and ~50 FP32 operations; per pair that contributes a
@@ -127,7 +147,7 @@ K34_FP32_EXACT = K3_FP32_WALKED - 27
 K34_SFU_EXACT = K3_SFU_WALKED
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 # T2's variants (K2 with parts removed, csrc/raster3d_bwd.cu) keep K2's
-# work per walked pair (alpha: one exp, ~16 FP32); per contributing pair
+# walk with its skip tests (`_k12_bound`); per contributing pair
 # (SFU, FP32): no_color drops dL/dw's four products and the four colour /
 # depth sums (~16 FP32), walk_only keeps only the log1p of the walk
 T2_CONTRIB_OPS = {"full": (K2_SFU_CONTRIB, K2_FP32_CONTRIB),
@@ -222,34 +242,90 @@ def _walked_mask(n_gauss, gauss_id, tile_starts, n_contrib):
     return walked
 
 
-def _pair_counts(fields, gauss_id, tile_starts, n_tiles_x, n_tiles_y,
-                 n_contrib):
-    """Pixel-gaussian pairs this data needs: walked (each pixel's segment
-    up to the gaussian after which its transmittance is at or below 1e-4,
-    K1's work) and, of those, the pairs with alpha >= 1/255 (the ones K2
-    differentiates)."""
+def _k12_counts(fields, gauss_id, tile_starts, n_tiles_x, n_contrib):
+    """What K1's and K2's walks over these segments do, from the records
+    `n_contrib` and the plain copies of their skip tests: pixel-gaussian
+    pairs walked (each pixel's segment up to the gaussian after which its
+    transmittance is at or below 1e-4, K1's work; K2 walks the same pairs
+    back) and, of those, the pairs with alpha >= 1/255 (contributing);
+    warp-gaussian steps (each warp of `raster3d.warp_of_pixel` visits the
+    gaussians before its pixels' furthest n_contrib) and the share the
+    support box culls; the walked pairs in steps that are not culled
+    (tested), the share of them whose rounded sigma the rejection skips,
+    and the rest (exact); and the lane efficiency, tested pairs over the
+    pixel slots (64 a warp) of the steps not culled, beside that of the
+    row map the kernels had before (every warp walking to the tile's
+    furthest n_contrib: 1024 slots a gaussian)."""
     import torch
-    from horizongs_tpu_torch.ops.raster3d import (
-        local_pixel_coords, segment_alpha)
-    lx, ly = local_pixel_coords(fields.device)
+    from horizongs_tpu_torch.ops import raster3d
+    from horizongs_tpu_torch.ops.reference import ALPHA_CUTOFF, MAX_ALPHA
+    dev = fields.device
+    lx, ly = raster3d.local_pixel_coords(dev)
+    warp = raster3d.warp_of_pixel(dev)
     starts = tile_starts.tolist()
-    contrib = torch.zeros((), dtype=torch.int64, device=fields.device)
-    for t in range(n_tiles_x * n_tiles_y):
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    contrib, steps, culled, tested, rejected, row_slots = (
+        zero.clone() for _ in range(6))
+    for t in range(len(starts) - 1):
         s, e = starts[t], starts[t + 1]
         if e == s:
             continue
-        alpha = segment_alpha(fields[gauss_id[s:e].long()], t, n_tiles_x,
-                              lx, ly)
-        walked = (torch.arange(e - s, device=fields.device)[None, :]
-                  < n_contrib[t][:, None])
-        contrib += (walked & (alpha > 0)).sum()
-    return int(n_contrib.sum()), int(contrib)
+        f = fields[gauss_id[s:e].long()]
+        nc = n_contrib[t].long()
+        pos = torch.arange(e - s, device=dev)[None, :]
+        sigma = raster3d._sigma(f, t, n_tiles_x, lx, ly)[2]
+        alpha = torch.clamp_max(f[None, :, 5] * torch.exp(-sigma), MAX_ALPHA)
+        walked = pos < nc[:, None]
+        contrib += (walked & (alpha >= ALPHA_CUTOFF)).sum()
+        cull = raster3d.warp_cull(f, t, n_tiles_x)          # (16, count)
+        reach = torch.zeros(raster3d.WARPS, dtype=torch.int64,
+                            device=dev).scatter_reduce(0, warp, nc, "amax")
+        visit = pos < reach[:, None]
+        steps += visit.sum()
+        culled += (visit & cull).sum()
+        kept = walked & ~cull[warp]
+        tested += kept.sum()
+        rejected += (kept & (sigma > raster3d.skip_threshold(f[:, 5]))).sum()
+        row_slots += raster3d.P * nc.max()
+    walked_n = int(n_contrib.sum())
+    steps, culled, tested = int(steps), int(culled), int(tested)
+    slots = raster3d.P // raster3d.WARPS * (steps - culled)
+    return {"walked_pairs": walked_n, "contributing_pairs": int(contrib),
+            "warp_steps": steps, "culled_step_share": culled / steps,
+            "rejected_share": int(rejected) / tested,
+            "culled_pair_share": 1 - tested / walked_n,
+            "tested_pairs": tested, "exact_pairs": tested - int(rejected),
+            "lane_efficiency": tested / slots,
+            "lane_efficiency_row_map": walked_n / int(row_slots)}
 
 
 def _bound(t_bytes, t_sfu, t_fp32):
     bound_s = max(t_bytes, t_sfu, t_fp32)
     return bound_s * 1e3, ("bytes" if t_bytes >= max(t_sfu, t_fp32)
                            else "operations")
+
+
+def _k12_bound(counts, n_bytes, contrib_ops, walked_all, contrib_all,
+               sfu_rate, fp32_rate):
+    """K1's or K2's bound from its `_k12_counts`: (ms, bound_by) of the
+    work its walk needs given the skip tests (the pairs in steps not culled
+    tested, the exp for the pairs not rejected, `contrib_ops` (SFU, FP32)
+    per contributing pair), and the ms of the count used before the skip
+    tests: `walked_all` per walked and `contrib_all` per contributing
+    pair."""
+    walked, contrib = counts["walked_pairs"], counts["contributing_pairs"]
+    tested, exact = counts["tested_pairs"], counts["exact_pairs"]
+    need = _bound(n_bytes / HBM_BYTES_PER_S,
+                  (K12_SFU_EXACT * exact + contrib_ops[0] * contrib)
+                  / sfu_rate,
+                  (K12_FP32_TESTED * tested + K12_FP32_EXACT * exact
+                   + contrib_ops[1] * contrib) / fp32_rate)
+    all_exact, _ = _bound(n_bytes / HBM_BYTES_PER_S,
+                          (walked_all[0] * walked + contrib_all[0] * contrib)
+                          / sfu_rate,
+                          (walked_all[1] * walked + contrib_all[1] * contrib)
+                          / fp32_rate)
+    return need, all_exact
 
 
 def _k34_bound(counts, n_bytes, sfu_walked, fp32_walked, sfu_contrib,
@@ -892,16 +968,24 @@ def main() -> int:
     _require(ok, "K1 disagrees with its plain version at 1080p")
     k1_ms = _time_ms(lambda: raster3d.rasterize_fwd(*k_args), 20)
     k1_plain_ms = _time_ms(lambda: raster3d.rasterize_fwd_plain(*k_args), 1)
-    k1_pairs, _ = _pair_counts(*k_args, plain[2])
+    k1_counts = _k12_counts(*k_args[:4], plain[2])
     k1_inst = int(ri.inst.n_instances)
     n_pix = ri.grid.n_tiles * raster3d.P
     # fields, ids and tile starts read once; acc, log T / i_fin, n_contrib
     # written once
     k1_bytes = (ri.fields.numel() * 4 + k1_inst * 4
                 + ri.inst.tile_starts.numel() * 4 + n_pix * 8 * 4)
-    k1_bound_ms, k1_bound_by = _bound(
-        k1_bytes / HBM_BYTES_PER_S, k1_pairs / sfu_rate,
-        k1_pairs * FP32_OPS_PER_PAIR / fp32_rate)
+    (k1_bound_ms, k1_bound_by), k1_all_exact_ms = _k12_bound(
+        k1_counts, k1_bytes, (K1_SFU_CONTRIB, K1_FP32_CONTRIB),
+        (1, FP32_OPS_PER_PAIR), (0, 0), sfu_rate, fp32_rate)
+    k1_design = {**_ptxas(built["K1"].log, "raster3d_fwd_kernel"),
+                 "blocks_per_sm": raster3d.occupancy(0),
+                 "bound_share": k1_bound_ms / k1_ms,
+                 "bound_ms_all_exact": k1_all_exact_ms,
+                 "bound_share_all_exact": k1_all_exact_ms / k1_ms,
+                 **k1_counts}
+    print(f"K1 1920x1088: {k1_ms:.4f} ms, bound {k1_bound_ms:.4f} ms; "
+          f"design {json.dumps(k1_design)}")
 
     # 5. serving 2DGS: 4 requests at 1920x1088 -------------------------------
     n_inst2 = [count_render_instances(c, cfg2d, mlps, state) for c in cams2d]
@@ -1035,18 +1119,25 @@ def main() -> int:
     _require(zeros_ok, "K2 wrote gradient for gaussians no pixel walked")
     k2_ms = _time_ms(lambda: raster3d.rasterize_bwd(*b_args), 20)
     k2_plain_ms = _time_ms(lambda: raster3d.rasterize_bwd_plain(*b_args), 1)
-    k2_walked, k2_contrib = _pair_counts(f, gid, starts, ntx, nty, b_args[6])
+    k2_counts = _k12_counts(f, gid, starts, ntx, b_args[6])
     k2_inst = int(starts[-1])
     n_pix = ntx * nty * raster3d.P
     # fields, ids and tile starts read once, 32 B per pixel (d_acc, d_logT,
     # log T, n_contrib), the field gradient written once
     k2_bytes = (f.numel() * 4 * 2 + k2_inst * 4 + starts.numel() * 4
                 + n_pix * 32)
-    k2_bound_ms, k2_bound_by = _bound(
-        k2_bytes / HBM_BYTES_PER_S,
-        (K2_SFU_WALKED * k2_walked + K2_SFU_CONTRIB * k2_contrib) / sfu_rate,
-        (K2_FP32_WALKED * k2_walked + K2_FP32_CONTRIB * k2_contrib)
-        / fp32_rate)
+    k2_contrib_ops = (K2_SFU_CONTRIB, K2_FP32_CONTRIB)
+    (k2_bound_ms, k2_bound_by), k2_all_exact_ms = _k12_bound(
+        k2_counts, k2_bytes, k2_contrib_ops, (K2_SFU_WALKED, K2_FP32_WALKED),
+        k2_contrib_ops, sfu_rate, fp32_rate)
+    k2_design = {**_ptxas(built["K2"].log, "raster3d_bwd_kernel"),
+                 "blocks_per_sm": raster3d.variant_occupancy("full", 0)[1],
+                 "bound_share": k2_bound_ms / k2_ms,
+                 "bound_ms_all_exact": k2_all_exact_ms,
+                 "bound_share_all_exact": k2_all_exact_ms / k2_ms,
+                 **k2_counts}
+    print(f"K2 1920x1088: {k2_ms:.4f} ms, bound {k2_bound_ms:.4f} ms; "
+          f"design {json.dumps(k2_design)}")
 
     # 7. training 2DGS, normal and distortion losses on from the start -------
     opt2d = make_optim(start_stat=0, lambda_normal=0.05, normal_start_iter=0,
@@ -1289,10 +1380,10 @@ def main() -> int:
         t2_bytes = (f2.numel() * 4 * (2 if v in ("full", "no_color") else 1)
                     + int(k2_args_1080[2][-1]) * 4
                     + k2_args_1080[2].numel() * 4 + n_pix2_3d * 32)
-        b_ms, b_by = _bound(
-            t2_bytes / HBM_BYTES_PER_S,
-            (K2_SFU_WALKED * k2_walked + sfu_c * k2_contrib) / sfu_rate,
-            (K2_FP32_WALKED * k2_walked + fp32_c * k2_contrib) / fp32_rate)
+        (b_ms, b_by), b_all_exact_ms = _k12_bound(
+            k2_counts, t2_bytes, (sfu_c, fp32_c),
+            (K2_SFU_WALKED, K2_FP32_WALKED), (sfu_c, fp32_c), sfu_rate,
+            fp32_rate)
         t2_entries.append({
             "name": f"raster3d_bwd {v} (T2)", "route": "cuda",
             "source": "horizongs_tpu_torch/csrc/raster3d_bwd.cu"
@@ -1315,7 +1406,8 @@ def main() -> int:
             # a stripped variant computes no function: it has no plain
             # version
             "plain_ms": k2_plain_ms if v == "full" else None,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_all_exact": b_all_exact_ms, "library_ms": None,
             "card": card})
     t3_bytes = {"empty": 0,
                 "write": 2040 * grid_overhead.ROWS * grid_overhead.P * 4,
@@ -1353,8 +1445,8 @@ def main() -> int:
         "tolerance": "acc atol 1e-4 (depth + rtol 2e-4); exp(logT) atol "
                      "1e-4; i_fin within 1; n_contrib equal or at the stop",
         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
-        "bound_by": k1_bound_by, "library_ms": None,
-        "pairs": k1_pairs, "instances": k1_inst,
+        "bound_by": k1_bound_by, "library_ms": None, **k1_design,
+        "instances": k1_inst,
         "sm_clock_mhz": sm_clock_hz / 1e6, "card": card}, {
         "name": "raster3d_bwd (K2)", "route": "cuda",
         "source": "horizongs_tpu_torch/csrc/raster3d_bwd.cu",
@@ -1365,8 +1457,7 @@ def main() -> int:
         "tolerance": f"per field {K2_TOL} x max |grad| of the field; "
                      "exact zeros for gaussians no pixel walked",
         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-        "bound_by": k2_bound_by, "library_ms": None,
-        "walked_pairs": k2_walked, "contributing_pairs": k2_contrib,
+        "bound_by": k2_bound_by, "library_ms": None, **k2_design,
         "instances": k2_inst, "sm_clock_mhz": sm_clock_hz / 1e6,
         "card": card}, {
         "name": "raster2d_fwd (K3)", "route": "cuda",
@@ -1407,7 +1498,8 @@ def main() -> int:
         "k1_ms_same_inputs": t1_times["1920x1088"]["k1"],
         "grid": t1_times["1920x1088"]["grid"],
         "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
-        "bound_by": k1_bound_by, "library_ms": None, "card": card},
+        "bound_by": k1_bound_by, "bound_ms_all_exact": k1_all_exact_ms,
+        "library_ms": None, "card": card},
         *t2_entries, *t3_entries]}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {

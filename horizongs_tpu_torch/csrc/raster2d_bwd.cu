@@ -68,55 +68,21 @@
 #include <cuda_runtime.h>
 
 #include "raster2d_common.cuh"
+#include "warp_common.cuh"
 
 namespace {
 
 using namespace raster2d;
+using namespace warp_common;
 
 constexpr int kBatch = 128;
 constexpr int kThreads = 256;
 constexpr int kPixPerThread = kPixels / kThreads;  // 2
 constexpr int kCot = 10;   // d_acc's 7 rows, dD, ddist, dmed per pixel
-constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kPixels % kThreads == 0, "pixels must split evenly");
 static_assert(kThreads / 32 == kWarps, "one 8x8 pixel block per warp");
 static_assert(kBatch <= kThreads, "one thread derives one surfel");
-
-// One step of the reduce-scatter: the first N of v are summed pairwise
-// with lane ^ O's, each lane keeping the lower or upper (N + 1) / 2 of them
-// (padded with a zero where N is odd) in v[0..(N + 1) / 2).
-template <int N, int O>
-__device__ __forceinline__ void reduce_scatter_step(float (&v)[kFields],
-                                                    int lane) {
-  constexpr int H = (N + 1) / 2;
-  const bool hi = (lane & O) != 0;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float a = v[i];
-    const float b = i + H < N ? v[i + H] : 0.0f;
-    const float send = hi ? a : b;
-    v[i] = (hi ? b : a) + __shfl_xor_sync(kFull, send, O);
-  }
-}
-
-// The field whose warp total reduce_scatter_step<18, 16> ... <2, 1> leaves
-// in a lane's v[0], or -1 where that lane holds padding.
-__device__ __forceinline__ int lane_field(int lane) {
-  int field = 0, real = kFields, n = kFields;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const int h = (n + 1) / 2;
-    if (lane & o) {
-      field += h;
-      real = max(0, real - h);
-    } else {
-      real = min(real, h);
-    }
-    n = h;
-  }
-  return real > 0 ? field : -1;
-}
 
 __global__ void __launch_bounds__(kThreads, 3)
 raster2d_bwd_kernel(const float* __restrict__ fields,
@@ -145,7 +111,7 @@ raster2d_bwd_kernel(const float* __restrict__ fields,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const unsigned wbit = 1u << warp;
-  const int field = lane_field(lane);
+  const int field = lane_field<kFields>(lane);
   const int start = tile_starts[t];
   const float x0 = static_cast<float>((t % n_tiles_x) * kTileW);
   const float y0 = static_cast<float>((t / n_tiles_x) * kTileH);
@@ -301,11 +267,7 @@ raster2d_bwd_kernel(const float* __restrict__ fields,
             if (q[r] != 0.0f) atomicAdd(&s_sum[j][r], q[r]);
         }
       } else {
-        reduce_scatter_step<18, 16>(q, lane);
-        reduce_scatter_step<9, 8>(q, lane);
-        reduce_scatter_step<5, 4>(q, lane);
-        reduce_scatter_step<3, 2>(q, lane);
-        reduce_scatter_step<2, 1>(q, lane);
+        reduce_scatter<kFields, 16>(q, lane);
         if (field >= 0 && q[0] != 0.0f) atomicAdd(&s_sum[j][field], q[0]);
       }
     }

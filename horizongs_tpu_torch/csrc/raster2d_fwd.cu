@@ -63,10 +63,12 @@
 #include <cuda_runtime.h>
 
 #include "raster2d_common.cuh"
+#include "warp_common.cuh"
 
 namespace {
 
 using namespace raster2d;
+using namespace warp_common;
 
 constexpr int kBatch = 128;
 constexpr int kThreads = 256;
@@ -76,22 +78,6 @@ constexpr int kChunks = kFields / 2;               // 8-byte copies per row
 static_assert(kPixels % kThreads == 0, "pixels must split evenly");
 static_assert(kThreads / 32 == kWarps, "one 8x8 pixel block per warp");
 static_assert(kBatch <= kThreads, "one thread derives one surfel");
-
-__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Starts the gather of the m surfels ids[0..m) into dst and commits it as
 // one group (an empty group where m == 0).

@@ -9,8 +9,9 @@
 // the TPU kernel writes one gradient column per instance because it has no
 // atomics; here each block adds its instances' gradients to their
 // gaussians' rows with atomicAdd. grad_fields starts at zero (the wrapper
-// zeroes it) and is written only for gaussians some pixel walked, so a
-// gaussian no pixel walked keeps exactly zero gradient.
+// zeroes it) and is written only for gaussians to which some walked pixel
+// gives alpha >= 1/255, so a gaussian no pixel walked keeps exactly zero
+// gradient.
 //
 // The function, for pixel p of tile t, walking the segment from its
 // n_contrib - 1 (K1's per-pixel record of how far it walked) down to 0:
@@ -29,31 +30,50 @@
 //   d a = Sum dsigma dx^2 / 2, d b = Sum dsigma dx dy (b the off-diagonal),
 //   d c = Sum dsigma dy^2 / 2, d op = -Sum dsigma / op,
 //   d (r, g, b, depth) = Sum w * d_acc rows.
-// sigma is rounded product by product (__fmul_rn / __fadd_rn) as in K1,
-// so the 1/255 and 0.999 cuts fall where the forward's did.
+// sigma is rounded product by product as in K1 (raster3d_common.cuh), so
+// the 1/255 and 0.999 cuts fall where the forward's did.
 //
-// Design: one block of 256 threads per 32x32 tile, four pixels per thread
-// (as K1). The tile's walked prefix (the block's max n_contrib) is staged
-// 128 gaussians at a time in shared memory, last chunk first. For each
-// gaussian every thread adds its pixels' ten partial sums; a warp that has
-// any contributing pixel reduces them with shuffles and its lane 0 stores
-// them in shared memory (a warp with none stores zeros and skips the
-// shuffles). After the chunk, thread j sums gaussian j's eight warp
-// partials, forms the ten field gradients and adds the non-zero ones to
-// grad_fields with atomicAdd. Atomics sum in no fixed order, so results
-// vary in the last bits from run to run.
+// What bounds it, given the skip tests (raster3d_common.cuh): nothing for
+// a walked pixel-gaussian pair in a warp step the support box culls; for
+// any other walked pair sigma and the rejection test (about 12 FP32
+// operations); for a pair the test does not reject, the exp of alpha on
+// the special-function units (16 results per SM per clock) and a few FP32
+// operations; per pair that contributes (alpha >= 1/255) a log (log1p),
+// an exp (T) and a reciprocal (alpha / (1 - alpha)) more on the SFU and
+// about 40 FP32 operations (dL/dw, w, dsigma, ten partial sums; an FMA
+// counting two). Bytes: 32 B read per pixel (d_acc 5 rows, dlogT, log T,
+// n_contrib), 44 B per instance (fields row and gauss_id) and one 40 B
+// gradient row per gaussian.
 //
-// What bounds it: per walked pixel-gaussian pair one exp on the special-
-// function units (alpha; 16 results per SM per clock) and about 14 FP32
-// operations (sigma as K1); per pair that contributes (alpha >= 1/255) a
-// log (log1p), an exp (T) and a reciprocal (alpha / (1 - alpha)) more on
-// the SFU and about 40 FP32 operations more (dL/dw, w, dsigma, ten
-// partial sums; an FMA counting two). So the SFU bounds it: 4 results per
-// contributing pair. Bytes: 32 B read per pixel (d_acc 5 rows, dlogT,
-// log T, n_contrib), 44 B per instance (fields row and gauss_id) and one
-// 40 B gradient row per gaussian; the atomics add at most 40 B per
-// instance. The ten-value warp reduction (50 shuffles per warp and
-// gaussian) is the overhead this simple design pays above the bound.
+// Design: one block of 512 threads per 32x32 tile; warp w owns an 8x8
+// pixel block, two pixels per lane (`warp_pixel`, as K1). Each pixel's
+// five cotangents wait in shared memory (a slot per thread and pixel, so a
+// warp's reads hit 32 banks) rather than in registers. The tile's walked
+// prefix (the block's max n_contrib) is staged 128 gaussians at a time,
+// last chunk first, into one of two shared buffers with cp.async (8-byte
+// copies of the 40-byte rows): the next (earlier) chunk's gather is in
+// flight while the current one is walked. Thread j then computes gaussian
+// j's skip threshold and the mask of the warps its support box reaches.
+// For each gaussian, from the warp's own furthest n_contrib down (a warp
+// whose pixels all stopped before a gaussian does not visit it):
+//  * a warp outside the gaussian's mask skips it outright;
+//  * a pair whose rounded sigma exceeds the threshold (alpha = 0, proved in
+//    raster3d_common.cuh) costs no exp; every other pair runs the
+//    unchanged arithmetic;
+//  * the warp ballots its contributing lanes. None: nothing more. One: that
+//    lane adds its ten values into the chunk's shared [128][10]
+//    accumulator with shared atomics. More: a reduce-scatter (a transposed
+//    butterfly over the ten sums, 5 + 3 + 2 + 1 + 1 = 12 shuffles, after
+//    which lane `lane_field` holds one sum's warp total), and those lanes
+//    add their totals with shared atomics; either way the gaussian is
+//    flagged as hit.
+// After the chunk, thread j forms hit gaussian j's ten gradients from its
+// sums, adds the non-zero ones to grad_fields with atomicAdd and zeroes the
+// sums for the next chunk. Atomics sum in no fixed order, so results vary
+// in the last bits from run to run. The exp of alpha and the log1p of the
+// walk are the accurate expf / log1pf, as in K1; the weight's T (__expf)
+// and alpha / (1 - alpha) (__fdividef, 2 ulp) are fast: they feed the
+// gradient sums only, held to 2e-4 of their max.
 //
 // T2, the cost attribution of K2 (the counterpart of the Pallas tool
 // tools/profile_bwd_variants.py `make_bwd`, whose stripped kernels are
@@ -63,23 +83,26 @@
 //                (the TPU tool's no_write);
 //   2 no_color   dL/dw takes the alpha row only and the four colour/depth
 //                sums are not formed (the counterpart of no_dots);
-//   3 no_reduce  no warp shuffles and no s_part partials, so no per-
-//                gaussian sums and no atomics (no_scan's cross-lane work);
-//   4 walk_only  the alpha recompute and the log T walk only.
+//   3 no_reduce  no ballot, no reduce-scatter and no shared accumulator,
+//                so no per-gaussian sums and no atomics (no_scan's
+//                cross-lane work);
+//   4 walk_only  the walk with its skip tests, alpha and the log T walk
+//                only.
 // The compiler deletes work whose result is never stored, so a variant that
 // drops a store keeps its result alive with a store guarded by `sentinel`,
 // a runtime argument it cannot predict (the wrapper passes NaN, which no
 // sum equals, so the store never happens). The variant's entry point is
 // raster3d_bwd_variant, with sentinel before the stream.
 // A variant that needs fewer registers or less shared memory than K2 would
-// keep more blocks resident per SM (by ptxas: K2 79 registers and 46.6 KB,
-// 3 blocks; no_color 63 registers, 4; walk_only 32 registers and 5.1 KB,
-// 8), and the time it saves would then mix the work it leaves out with
-// the latency that more resident warps hide. So every build exports
-// raster3d_bwd_occupancy, and the variant's launch reserves the dynamic
-// shared memory (unused) that holds it to K2's blocks per SM.
+// keep more blocks resident per SM, and the time it saves would then mix
+// the work it leaves out with the latency that more resident warps hide.
+// So every build exports raster3d_bwd_occupancy, and the variant's launch
+// reserves the dynamic shared memory (unused) that holds it to K2's blocks
+// per SM.
 
 #include <cuda_runtime.h>
+
+#include "raster3d_common.cuh"
 
 #ifndef K2_VARIANT
 #define K2_VARIANT 0
@@ -96,33 +119,28 @@
 
 namespace {
 
-constexpr int kTileW = 32;
-constexpr int kTileH = 32;
-constexpr int kPixels = kTileW * kTileH;
-constexpr int kChunk = 128;                       // G
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kPixPerThread = kPixels / kThreads;  // 4
-constexpr int kFields = 10;
-constexpr int kAccRows = 5;
+using namespace raster3d;
+
 constexpr int kSums = 10;
+constexpr int kCot = kAccRows;   // d_acc's rows per pixel
 // the sums a gaussian's gradient is formed from: no_color drops the four
 // w * d_acc colour/depth rows
 constexpr int kUsedSums = K2_VARIANT == 2 ? 6 : kSums;
-constexpr float kAlphaCutoff = 1.0f / 255.0f;
-constexpr float kMaxAlpha = 0.999f;
 
-static_assert(kPixels % kThreads == 0, "pixels must split evenly");
-static_assert(kChunk <= kThreads, "one thread stages one gaussian");
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
+// Starts chunk i's gather (of the walked prefix of n_walk instances ids)
+// into buffer i % 2 and stores its gaussian ids beside it.
+__device__ __forceinline__ void gather(Chunk (&s_f)[2],
+                                       int (&s_id)[2][kChunk],
+                                       const float* __restrict__ fields,
+                                       const int* __restrict__ ids, int i,
+                                       int n_walk, int tid) {
+  const int base = i * kChunk;
+  const int m = min(kChunk, n_walk - base);
+  if (tid < m) s_id[i & 1][tid] = ids[base + tid];
+  stage(s_f[i & 1], fields, ids + base, m, tid);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 raster3d_bwd_kernel(const float* __restrict__ fields,
                     const int* __restrict__ gauss_id,
                     const int* __restrict__ tile_starts,
@@ -132,27 +150,34 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
                     const int* __restrict__ n_contrib,
                     int n_tiles_x,
                     float* __restrict__ grad_fields K2_SENTINEL_PARAM) {
-  __shared__ float s_f[kFields][kChunk];
-  __shared__ int s_id[kChunk];
-  // partial sums per (sum, warp, gaussian of the chunk): 40 KB
-  __shared__ float s_part[kSums][kWarps][kChunk];
+  __shared__ Chunk s_f[2];
+  __shared__ int s_id[2][kChunk];
+  __shared__ float s_thr[kChunk];
+  __shared__ unsigned s_mask[kChunk];
+  __shared__ int s_hit[kChunk];
+  __shared__ float s_sum[kChunk][kSums];     // warp totals per gaussian
+  __shared__ float s_g[kCot][kPixPerThread * kThreads];
   __shared__ int s_walk;
 
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const unsigned wbit = 1u << warp;
   const int start = tile_starts[t];
+  const int* ids = gauss_id + start;
   const float x0 = static_cast<float>((t % n_tiles_x) * kTileW);
   const float y0 = static_cast<float>((t / n_tiles_x) * kTileH);
 
   if (tid == 0) s_walk = 0;
+  for (int e = tid; e < kChunk * kSums; e += kThreads)
+    (&s_sum[0][0])[e] = 0.0f;
 
-  // thread tid owns pixels tid + k*256, as in K1
-  float px[kPixPerThread], py[kPixPerThread];
+  // the lane's pixels share a column and lie kRowStep rows apart
+  const int p0 = warp_pixel(warp, lane, 0);
+  const float px = x0 + static_cast<float>(p0 % kTileW) + 0.5f;
+  const float py0 = y0 + static_cast<float>(p0 / kTileW) + 0.5f;
   float logT[kPixPerThread], S[kPixPerThread];
-  float gr[kPixPerThread], gg[kPixPerThread], gb[kPixPerThread];
-  float gd[kPixPerThread], ga[kPixPerThread];
   int nc[kPixPerThread];
   int my_walk = 0;
 #if K2_VARIANT == 3 || K2_VARIANT == 4
@@ -162,46 +187,52 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
   const float* g_t = d_acc + static_cast<size_t>(t) * kAccRows * kPixels;
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
-    const int p = tid + k * kThreads;
-    px[k] = x0 + static_cast<float>(p % kTileW) + 0.5f;
-    py[k] = y0 + static_cast<float>(p / kTileW) + 0.5f;
+    const int p = p0 + kRowStep * k * kTileW;
+#pragma unroll
+    for (int r = 0; r < kCot; ++r)
+      s_g[r][k * kThreads + tid] = g_t[r * kPixels + p];
     logT[k] = log_t[pix0 + p];
     S[k] = d_logT[pix0 + p];
-    gr[k] = g_t[0 * kPixels + p];
-    gg[k] = g_t[1 * kPixels + p];
-    gb[k] = g_t[2 * kPixels + p];
-    gd[k] = g_t[3 * kPixels + p];
-    ga[k] = g_t[4 * kPixels + p];
     nc[k] = n_contrib[pix0 + p];
     my_walk = max(my_walk, nc[k]);
   }
-  my_walk = __reduce_max_sync(0xffffffffu, my_walk);
+  const int warp_walk = __reduce_max_sync(kFull, my_walk);
   __syncthreads();                       // s_walk initialised
-  if (lane == 0) atomicMax(&s_walk, my_walk);
+  if (lane == 0) atomicMax(&s_walk, warp_walk);
   __syncthreads();
   const int n_walk = s_walk;             // the tile's walked prefix
   const int n_chunks = (n_walk + kChunk - 1) / kChunk;
 
+  if (n_chunks > 0)
+    gather(s_f, s_id, fields, ids, n_chunks - 1, n_walk, tid);
+
   for (int i = n_chunks - 1; i >= 0; --i) {
+    const int b = i & 1;
     const int base = i * kChunk;
     const int m = min(kChunk, n_walk - base);
-    __syncthreads();                     // last chunk's reduction is done
+    cp_async_wait<0>();                  // this chunk's copies landed
+    __syncthreads();                     // everyone's did, and the last
+                                         // chunk's sums are added
+    // the earlier chunk's gather goes into the other buffer, whose last
+    // readers (the chunk before this one) passed that barrier
+    if (i > 0) gather(s_f, s_id, fields, ids, i - 1, n_walk, tid);
     if (tid < m) {
-      const int id = gauss_id[start + base + tid];
-      s_id[tid] = id;
-      const float* f = fields + static_cast<size_t>(id) * kFields;
-#pragma unroll
-      for (int r = 0; r < kFields; ++r) s_f[r][tid] = f[r];
+      const float* f = row(s_f[b], tid);
+      const float thr = skip_threshold(f[5]);
+      s_thr[tid] = thr;
+      s_mask[tid] = warp_mask(support_box(f, thr), x0, y0);
+      s_hit[tid] = 0;
     }
     __syncthreads();
 
-    for (int j = m - 1; j >= 0; --j) {
+    for (int j = min(m, warp_walk - base) - 1; j >= 0; --j) {
+      if (!(s_mask[j] & wbit)) continue;            // culled for this warp
       const int jj = base + j;
-      const float mx = s_f[0][j], my = s_f[1][j];
-      const float a = s_f[2][j], b = s_f[3][j], c = s_f[4][j];
-      const float op = s_f[5][j];
-      const float cr = s_f[6][j], cg = s_f[7][j], cb = s_f[8][j];
-      const float cd = s_f[9][j];
+      const float* f = row(s_f[b], j);
+      const float mx = f[0], my = f[1];
+      const float ha = 0.5f * f[2], bq = f[3], hc = 0.5f * f[4];
+      const float op = f[5];
+      const float thr = s_thr[j];
       // s0, sx, sy, sxx, sxy, syy, then w * d_acc rows r, g, b, depth
       float q[kSums];
 #pragma unroll
@@ -210,29 +241,30 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
 #pragma unroll
       for (int k = 0; k < kPixPerThread; ++k) {
         if (jj >= nc[k]) continue;
-        const float dx = px[k] - mx;
-        const float dy = py[k] - my;
-        const float sigma = __fadd_rn(
-            __fadd_rn(__fmul_rn(__fmul_rn(0.5f * a, dx), dx),
-                      __fmul_rn(__fmul_rn(b, dx), dy)),
-            __fmul_rn(__fmul_rn(0.5f * c, dy), dy));
+        const float dx = px - mx;
+        const float dy = py0 + static_cast<float>(kRowStep * k) - my;
+        const float sigma = sigma_of(ha, bq, hc, dx, dy);
+        if (sigma > thr) continue;                  // alpha = 0
         const float raw = op * expf(-sigma);
         const float alpha = fminf(raw, kMaxAlpha);
-        if (!(alpha >= kAlphaCutoff)) continue;   // K1 skipped it too
+        if (!(alpha >= kAlphaCutoff)) continue;     // K1 skipped it too
         const float before = logT[k] - log1pf(-alpha);
 #if K2_VARIANT == 4
         logT[k] = before;
 #else
-        const float w = alpha * expf(before);
+        const int slot = k * kThreads + tid;
+        const float w = alpha * __expf(before);
 #if K2_VARIANT == 2
-        const float dw = ga[k];
+        const float dw = s_g[4][slot];
 #else
-        const float dw = gr[k] * cr + gg[k] * cg + gb[k] * cb + gd[k] * cd
-                         + ga[k];
+        const float dw = s_g[0][slot] * f[6] + s_g[1][slot] * f[7]
+                         + s_g[2][slot] * f[8] + s_g[3][slot] * f[9]
+                         + s_g[4][slot];
 #endif
         const float wdw = w * dw;
         const float dsig =
-            raw < kMaxAlpha ? S[k] * (alpha / (1.0f - alpha)) - wdw : 0.0f;
+            raw < kMaxAlpha ? S[k] * __fdividef(alpha, 1.0f - alpha) - wdw
+                            : 0.0f;
         const float u = dsig * dx;
         const float v = dsig * dy;
         q[0] += dsig;
@@ -242,10 +274,10 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
         q[4] += u * dy;
         q[5] += v * dy;
 #if K2_VARIANT != 2
-        q[6] += w * gr[k];
-        q[7] += w * gg[k];
-        q[8] += w * gb[k];
-        q[9] += w * gd[k];
+        q[6] += w * s_g[0][slot];
+        q[7] += w * s_g[1][slot];
+        q[8] += w * s_g[2][slot];
+        q[9] += w * s_g[3][slot];
 #endif
         S[k] += wdw;
         logT[k] = before;
@@ -256,36 +288,39 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
 #pragma unroll
       for (int r = 0; r < kSums; ++r) keep += q[r];
 #elif K2_VARIANT != 4
-      if (__any_sync(0xffffffffu, any)) {
+      const unsigned ballot = __ballot_sync(kFull, any);
+      if (ballot == 0) continue;
+      if (lane == 0) s_hit[j] = 1;
+      if ((ballot & (ballot - 1)) == 0) {           // one contributing lane
+        if (any) {
 #pragma unroll
-        for (int r = 0; r < kUsedSums; ++r) q[r] = warp_sum(q[r]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kUsedSums; ++r) s_part[r][warp][j] = q[r];
+          for (int r = 0; r < kUsedSums; ++r)
+            if (q[r] != 0.0f) atomicAdd(&s_sum[j][r], q[r]);
+        }
+      } else {
+        reduce_scatter<kUsedSums, 16>(q, lane);
+        const int field = lane_field<kUsedSums>(lane);
+        if (field >= 0 && q[0] != 0.0f) atomicAdd(&s_sum[j][field], q[0]);
       }
 #endif
     }
-    __syncthreads();
 #if K2_VARIANT != 3 && K2_VARIANT != 4
+    __syncthreads();                     // the chunk's sums are complete
 
-    if (tid < m) {
+    if (tid < m && s_hit[tid]) {
       const int j = tid;
       float s[kSums];
 #pragma unroll
       for (int r = 0; r < kSums; ++r) {
-        float acc = 0.0f;
-        if (r < kUsedSums) {
-#pragma unroll
-          for (int w = 0; w < kWarps; ++w) acc += s_part[r][w][j];
-        }
-        s[r] = acc;
+        s[r] = r < kUsedSums ? s_sum[j][r] : 0.0f;
+        if (r < kUsedSums) s_sum[j][r] = 0.0f;
       }
-      const float a = s_f[2][j], b = s_f[3][j], c = s_f[4][j];
-      const float op = s_f[5][j];
+      const float* f = row(s_f[b], j);
+      const float a = f[2], bq = f[3], c = f[4];
+      const float op = f[5];
       float g[kFields];
-      g[0] = -(a * s[1] + b * s[2]);
-      g[1] = -(b * s[1] + c * s[2]);
+      g[0] = -(a * s[1] + bq * s[2]);
+      g[1] = -(bq * s[1] + c * s[2]);
       g[2] = 0.5f * s[3];
       g[3] = s[4];
       g[4] = 0.5f * s[5];
@@ -294,7 +329,7 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
       g[7] = s[7];
       g[8] = s[8];
       g[9] = s[9];
-      float* out = grad_fields + static_cast<size_t>(s_id[j]) * kFields;
+      float* out = grad_fields + static_cast<size_t>(s_id[b][j]) * kFields;
 #if K2_VARIANT == 1
       float sum = 0.0f;
 #pragma unroll
@@ -321,9 +356,9 @@ raster3d_bwd_kernel(const float* __restrict__ fields,
 
 // Launches K2 on `stream` over n_tiles (> 0) blocks and returns
 // cudaGetLastError() as an int (0 = launched). All pointers are device
-// pointers: fields (N, 10) float32, gauss_id (CAP,) int32, tile_starts
-// (n_tiles + 1,) int32, d_acc (n_tiles, 5, 1024), d_logT and log_t
-// (n_tiles, 1024) float32, n_contrib (n_tiles, 1024) int32, and
+// pointers: fields (N, 10) float32, 8-byte aligned, gauss_id (CAP,) int32,
+// tile_starts (n_tiles + 1,) int32, d_acc (n_tiles, 5, 1024), d_logT and
+// log_t (n_tiles, 1024) float32, n_contrib (n_tiles, 1024) int32, and
 // grad_fields (N, 10) float32, zeroed by the caller and added into.
 #if K2_VARIANT == 0
 extern "C" int raster3d_bwd(const float* fields, const int* gauss_id,

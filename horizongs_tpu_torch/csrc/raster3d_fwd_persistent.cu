@@ -22,16 +22,17 @@
 // uniform across the block: thread 0 fetches it into shared memory between
 // two barriers (the first keeps it from overwriting the index some thread
 // has not read yet), and `composite_tile` ends every read of the staging
-// buffer with a barrier, so the next tile may stage at once. K1's
-// __syncthreads_count exit ends one tile's walk, not the block.
+// buffers with a barrier and waits for its own copies before it returns,
+// so the next tile may stage at once. K1's __syncthreads_count exit ends
+// one tile's walk, not the block.
 //
 // The counter is zeroed on the launch's stream (cudaMemsetAsync) before
 // every dynamic launch: left at its last value it would hand the next
 // launch no tiles.
 //
-// What bounds it: K1's work (the exp per walked pixel-gaussian pair on the
-// special-function units); what it measures is what the hardware block
-// scheduler costs K1 per tile, against a loop in software.
+// What bounds it: K1's work (raster3d_fwd.cu); what it measures is what
+// the hardware block scheduler costs K1 per tile, against a loop in
+// software.
 
 #include <cuda_runtime.h>
 
@@ -39,12 +40,12 @@
 
 namespace {
 
-using namespace raster3d_tile;
+using namespace raster3d;
 
 // kDynamic: the dynamic schedule (a compile-time choice, so neither
 // schedule carries the other's state in registers)
 template <bool kDynamic>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 raster3d_fwd_persistent_kernel(const float* __restrict__ fields,
                                const int* __restrict__ gauss_id,
                                const int* __restrict__ tile_starts,
@@ -53,7 +54,7 @@ raster3d_fwd_persistent_kernel(const float* __restrict__ fields,
                                float* __restrict__ log_t,
                                int* __restrict__ n_contrib,
                                int* __restrict__ counter) {
-  __shared__ float s_f[kFields][kChunk];
+  __shared__ FwdShared s;
   __shared__ int s_tile;
 
   int t = blockIdx.x;
@@ -65,7 +66,7 @@ raster3d_fwd_persistent_kernel(const float* __restrict__ fields,
       t = s_tile;
     }
     if (t >= n_tiles) break;
-    composite_tile(fields, gauss_id, tile_starts, n_tiles_x, t, s_f, acc,
+    composite_tile(fields, gauss_id, tile_starts, n_tiles_x, t, s, acc,
                    log_t, n_contrib);
     if (!kDynamic) t += gridDim.x;
   }

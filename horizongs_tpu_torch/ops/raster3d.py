@@ -6,9 +6,8 @@ segment, front to back (K1) and its reverse walk for the gradients (K2).
 tensors they run `rasterize_fwd_plain` and `rasterize_bwd_plain`, the same
 functions in plain PyTorch. The kernels replace the Pallas TPU kernels
 `horizongs_tpu/ops/pallas/raster3d.py::_fwd_kernel` and `_bwd_kernel`;
-their sources say what bounds them on Hopper (the exp, log and reciprocal
-per pixel-gaussian pair on the special-function units) and how their
-designs meet that.
+their sources say what bounds them on Hopper and how their designs meet
+that.
 
 K1's contract (the TPU kernel's, minus the instance copy it needed):
   fields      (N, 10) float32: mx, my, conic a, b, c, opacity, r, g, b, depth
@@ -33,6 +32,18 @@ pixel's reverse walk starts at its own n_contrib: a tile-wide start
 added. Gaussians that no pixel walked get exactly zero.
 Tiles are 32x32 (P = 1024 pixels, row-major), tile t at column
 t % n_tiles_x, row t // n_tiles_x.
+
+Inside a tile's block, warp w owns the 8x8 pixel block at column
+8·(w % 4), row 8·(w // 4) (`warp_of_pixel`). Both kernels skip work that
+provably has alpha = 0 (`csrc/raster3d_common.cuh`, which derives the
+margins): a warp skips a gaussian whose support box its pixel centres miss
+(`support_box`, `warp_cull`), and a pair whose rounded sigma exceeds the
+gaussian's threshold (`skip_threshold`, `segment_reject`) skips the exp.
+Every other pair takes the unchanged arithmetic, so records and cut-offs
+are those of the plain versions. These plain copies of the tests serve the
+tests and the chip run's counters only. The kernels stage their chunks
+with cp.async, 8-byte copies of the field rows: the kernels' `fields`
+must be 8-byte aligned.
 
 Two measurement tools live beside them. T1, `rasterize_fwd_persistent`
 (`csrc/raster3d_fwd_persistent.cu`, the counterpart of the Pallas tool
@@ -68,11 +79,29 @@ N_FIELDS = 10
 N_ACC = 5        # acc rows: r, g, b, depth, alpha
 LOG_T_EPS = math.log(TRANSMITTANCE_EPS)
 
+# the margins of the rejection and the support box, and the warp map: copies
+# of csrc/raster3d_common.cuh's constants, which derives them
+# (tests/test_torch_raster3d_skip.py holds the two equal)
+REJECT_REL = 1e-5
+REJECT_ABS = 1e-5
+THR_FLOOR = -80.0
+BOX_RHO_SCALE = 1.001
+BOX_SIGMA_REL = 1e-6
+BOX_MAX_LOSS = 0.5
+BOX_PAD_PX = 1.0
+BOX_PAD_REL = 1e-4
+WARPS = 16
+BLOCK_W = 8
+BLOCK_H = 8
+FLT_MAX = torch.finfo(torch.float32).max
+
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("raster3d_fwd",
                     [_VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP])
 _BWD_ARGS = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP]
 KERNEL_BWD = CudaKernel("raster3d_bwd", _BWD_ARGS + [_VP])
+_FWD_OCCUPANCY = CudaKernel("raster3d_fwd_occupancy", [ctypes.POINTER(_INT)],
+                            source="raster3d_fwd")
 
 # T1: K1's arguments, the tile counter, the schedule and the grid size;
 # the slots query gives the grid
@@ -108,16 +137,109 @@ def local_pixel_coords(device):
     return (p % TILE_W).float() + 0.5, (p // TILE_W).float() + 0.5
 
 
+def warp_of_pixel(device) -> torch.Tensor:
+    """(P,) the warp of K1's and K2's blocks that owns each pixel."""
+    p = torch.arange(P, device=device)
+    return (p // TILE_W // BLOCK_H) * (TILE_W // BLOCK_W) \
+        + (p % TILE_W) // BLOCK_W
+
+
+def occupancy(device_index: int) -> int:
+    """K1's blocks per SM on the card `device_index` (a query of the
+    runtime; launches nothing). K2's is `variant_occupancy("full", .)`."""
+    blocks = _INT(0)
+    with torch.cuda.device(device_index):
+        _FWD_OCCUPANCY.call(ctypes.byref(blocks))
+    return blocks.value
+
+
+def _sigma(f: torch.Tensor, t: int, n_tiles_x: int, lx: torch.Tensor,
+           ly: torch.Tensor):
+    """(dx, dy, sigma), each (P, count), of tile t's pixels (local centres
+    lx, ly) against the fields f (count, 10): sigma's products and sums in
+    the kernels' order, one rounding each."""
+    dx = (lx + float((t % n_tiles_x) * TILE_W))[:, None] - f[None, :, 0]
+    dy = (ly + float((t // n_tiles_x) * TILE_H))[:, None] - f[None, :, 1]
+    sigma = (0.5 * f[None, :, 2] * dx * dx + f[None, :, 3] * dx * dy
+             + 0.5 * f[None, :, 4] * dy * dy)
+    return dx, dy, sigma
+
+
+def skip_threshold(op: torch.Tensor) -> torch.Tensor:
+    """thr per gaussian, float32 as the kernels compute it (to within an ulp
+    of the log): ln(255 op) widened by REJECT_REL of itself and by
+    REJECT_ABS, at least THR_FLOOR; -1 where op <= 0; NaN (nothing skipped)
+    where op is not finite."""
+    tau = torch.log(255.0 * op)
+    thr = torch.clamp_min(tau + REJECT_REL * torch.abs(tau) + REJECT_ABS,
+                          THR_FLOOR)
+    thr = torch.where(op <= 0, torch.full_like(thr, -1.0), thr)
+    return torch.where(torch.isfinite(op), thr, torch.full_like(thr, math.nan))
+
+
+def segment_reject(f: torch.Tensor, t: int, n_tiles_x: int,
+                   lx: torch.Tensor, ly: torch.Tensor) -> torch.Tensor:
+    """(P, count) bool: the pairs of tile t's pixels and the gaussians f
+    (count, 10) that the kernels' test skips: the rounded sigma above
+    `skip_threshold`. A skipped pair has alpha = 0."""
+    return _sigma(f, t, n_tiles_x, lx, ly)[2] > skip_threshold(f[:, 5])
+
+
+def support_box(f: torch.Tensor) -> torch.Tensor:
+    """(count, 4) float32 (x0, x1, y0, y1): pixel centres outside
+    [x0, x1] x [y0, y1] have alpha = 0 with the gaussians f (count, 10).
+    The kernels' double-precision box of the ellipse sigma <= 1.001 thr /
+    (1 - BOX_SIGMA_REL kappa) (kappa the conic's condition number), widened
+    (to the last bits of a double); the whole plane where thr is NaN, the
+    conic is not positive definite, BOX_SIGMA_REL kappa > BOX_MAX_LOSS or
+    anything is not finite; empty where thr < 0."""
+    thr = skip_threshold(f[:, 5])
+    mx, my, a, b, c = f[:, :5].double().unbind(1)
+    det = a * c - b * b
+    ok = ((a > 0) & (det > 0) & torch.isfinite(det) & torch.isfinite(mx)
+          & torch.isfinite(my) & ~torch.isnan(thr))
+    half = 0.5 * (a + c)
+    r = torch.sqrt(0.25 * (a - c) * (a - c) + b * b)
+    loss = BOX_SIGMA_REL * (half + r) / (det / (half + r))
+    ok &= loss <= BOX_MAX_LOSS
+    t = BOX_RHO_SCALE * thr.double() / (1.0 - loss)
+    hx = torch.sqrt(2.0 * t * c / det)
+    hy = torch.sqrt(2.0 * t * a / det)
+    px = BOX_PAD_PX + BOX_PAD_REL * (torch.abs(mx) + hx)
+    py = BOX_PAD_PX + BOX_PAD_REL * (torch.abs(my) + hy)
+    box = torch.stack([mx - hx - px, mx + hx + px, my - hy - py,
+                       my + hy + py], 1).float()
+    inf = math.inf
+    res = torch.tensor([-inf, inf, -inf, inf],
+                       device=f.device).expand_as(box)
+    empty = torch.tensor([inf, -inf, inf, -inf], device=f.device)
+    res = torch.where((ok & (thr < 0))[:, None], empty, res)
+    fits = ok & (thr >= 0) & (box.abs() <= FLT_MAX).all(1)
+    return torch.where(fits[:, None], box, res)
+
+
+def warp_cull(f: torch.Tensor, t: int, n_tiles_x: int) -> torch.Tensor:
+    """(WARPS, count) bool: warp w of tile t's block skips gaussian j of f
+    (count, 10) outright, its pixel centres all outside the support box."""
+    box = support_box(f)
+    w = torch.arange(WARPS, device=f.device)
+    bx = TILE_W // BLOCK_W
+    xl = (float((t % n_tiles_x) * TILE_W) + (w % bx * BLOCK_W).float()
+          + 0.5)[:, None]
+    yl = (float((t // n_tiles_x) * TILE_H) + (w // bx * BLOCK_H).float()
+          + 0.5)[:, None]
+    xh, yh = xl + (BLOCK_W - 1), yl + (BLOCK_H - 1)
+    return ((box[None, :, 1] < xl) | (box[None, :, 0] > xh)
+            | (box[None, :, 3] < yl) | (box[None, :, 2] > yh))
+
+
 def _segment_geometry(f: torch.Tensor, t: int, n_tiles_x: int,
                       lx: torch.Tensor, ly: torch.Tensor):
     """(dx, dy, raw alpha, alpha), each (P, count), of tile t's pixels
     (local centres lx, ly) against the fields f (count, 10) of its segment:
     alpha capped and cut off as K1 does, sigma's products and sums in the
     kernel's order."""
-    dx = (lx + float((t % n_tiles_x) * TILE_W))[:, None] - f[None, :, 0]
-    dy = (ly + float((t // n_tiles_x) * TILE_H))[:, None] - f[None, :, 1]
-    sigma = (0.5 * f[None, :, 2] * dx * dx + f[None, :, 3] * dx * dy
-             + 0.5 * f[None, :, 4] * dy * dy)
+    dx, dy, sigma = _sigma(f, t, n_tiles_x, lx, ly)
     raw = f[None, :, 5] * torch.exp(-sigma)
     alpha = torch.clamp_max(raw, MAX_ALPHA)
     alpha = torch.where(alpha >= ALPHA_CUTOFF, alpha, torch.zeros_like(alpha))
@@ -228,6 +350,12 @@ def _check_segments(fields, gauss_id, tile_starts, n_tiles,
                          f"not {dev}")
 
 
+def _check_aligned(fields):
+    if fields.data_ptr() % 8:
+        raise ValueError("the kernels copy fields in 8-byte pieces: its "
+                         "storage must be 8-byte aligned")
+
+
 def _check_shape(name, x, shape):
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
@@ -245,6 +373,7 @@ def rasterize_fwd(fields: torch.Tensor, gauss_id: torch.Tensor,
     if dev.type == "cpu":
         return rasterize_fwd_plain(fields, gauss_id, tile_starts, n_tiles_x,
                                    n_tiles_y)
+    _check_aligned(fields)
     acc = torch.empty((n_tiles, N_ACC, P), dtype=torch.float32, device=dev)
     logT = torch.empty((n_tiles, 2, P), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((n_tiles, P), dtype=torch.int32, device=dev)
@@ -297,6 +426,7 @@ def rasterize_fwd_persistent(fields: torch.Tensor, gauss_id: torch.Tensor,
     if dev.type == "cpu":
         return rasterize_fwd_plain(fields, gauss_id, tile_starts, n_tiles_x,
                                    n_tiles_y)
+    _check_aligned(fields)
     acc = torch.empty((n_tiles, N_ACC, P), dtype=torch.float32, device=dev)
     logT = torch.empty((n_tiles, 2, P), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((n_tiles, P), dtype=torch.int32, device=dev)
@@ -400,6 +530,7 @@ def _launch_bwd(kernel, extra, fields, gauss_id, tile_starts, d_acc, d_logT,
     stream) into a zeroed (N, 10) gradient."""
     dev = fields.device
     n_tiles = n_tiles_x * n_tiles_y
+    _check_aligned(fields)
     grad = torch.zeros_like(fields)
     if n_tiles == 0:
         return grad

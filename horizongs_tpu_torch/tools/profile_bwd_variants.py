@@ -9,8 +9,9 @@ from (0, 0, -4) at 1920x1088, instance cap 6n, through the port's
 of `ops/raster3d.py::rasterize_bwd_variant` run on K1's records, each
 timed with CUDA events (best of 3 x 20): full (K2), no_atomic (gradients
 formed, not added), no_color (dL/dw from the alpha row only, no colour or
-depth sums), no_reduce (no warp shuffles or partials, so no per-gaussian
-sums and no atomics) and walk_only (alpha and the log T walk). Each
+depth sums), no_reduce (no ballot, reduce-scatter or shared
+accumulator, so no per-gaussian sums and no atomics) and walk_only (the
+walk with its skip tests, alpha and the log T walk). Each
 variant runs at K2's blocks per SM (its launch reserves the shared memory
 that holds it there; the tool prints both). Each variant's difference
 from full is then the time of what it leaves out: full - no_atomic the

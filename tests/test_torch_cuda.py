@@ -34,17 +34,170 @@ def _scene(dev, n=2000, seed=3):
     return {k: torch.from_numpy(v).to(dev) for k, v in g.items()}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("size", [(64, 64), (200, 120)])
-def test_kernel_matches_plain(card, size):
-    w, h = size
-    g = _scene(card)
-    cam = lookat_camera(width=w, height=h, eye=(0, 0, -4), device=card)
+C255 = np.float32(1.0 / 255.0)
+ULP = np.float32(2.0 ** -23)
+
+
+def _fields3d(mx, my, a, b, c, op, rng):
+    """(N, 10) float32 fields [mx, my, a, b, c, op, r, g, b, depth]."""
+    n = len(mx)
+    return torch.from_numpy(np.stack(
+        [mx, my, a, b, c, op, *rng.uniform(0, 1, (3, n)),
+         rng.uniform(1, 5, n)], axis=1).astype(np.float32))
+
+
+def _conics(rng, n, log_scale=(-3.0, 0.0), log_kappa=(0.0, 7.0)):
+    """n conics (a, b, c) of random orientation, the larger eigenvalue
+    10^U(log_scale), the condition number 10^U(log_kappa)."""
+    lam1 = 10.0 ** rng.uniform(*log_scale, n)
+    lam2 = lam1 / 10.0 ** rng.uniform(*log_kappa, n)
+    th = rng.uniform(0, np.pi, n)
+    cs, sn = np.cos(th), np.sin(th)
+    return (lam1 * cs * cs + lam2 * sn * sn, (lam1 - lam2) * sn * cs,
+            lam1 * sn * sn + lam2 * cs * cs)
+
+
+def _sigma_at(f, x, y):
+    """float32 sigma of each gaussian of f at pixel centre (x, y), in the
+    kernels' order."""
+    dx = torch.tensor(np.float32(x)) - f[:, 0]
+    dy = torch.tensor(np.float32(y)) - f[:, 1]
+    return (0.5 * f[:, 2] * dx * dx + f[:, 3] * dx * dy
+            + 0.5 * f[:, 4] * dy * dy)
+
+
+def _random_gaussians3d(seed=31, n=300):
+    """Positive-definite conics of every conditioning (up to 1e7), means on
+    and around a 64x64 grid, opacities from 1/255 to 1."""
+    rng = np.random.default_rng(seed)
+    a, b, c = _conics(rng, n)
+    return _fields3d(rng.uniform(-12, 76, n), rng.uniform(-12, 76, n), a, b,
+                     c, rng.uniform(C255, 1.0, n), rng)
+
+
+def _opacity_gaussians3d(seed=32, n=300):
+    """Opacities at the edges of the cut-off: 1/255 and a few ulps either
+    side, near 1, zero and negative, and set so that one pixel's
+    op·exp(-sigma) lands within an ulp or two of 1/255."""
+    rng = np.random.default_rng(seed)
+    a, b, c = _conics(rng, n, log_scale=(-2.0, 0.0), log_kappa=(0.0, 3.0))
+    mx, my = rng.uniform(0, 64, n), rng.uniform(0, 64, n)
+    f = _fields3d(mx, my, a, b, c, np.ones(n), rng)
+    px = np.floor(mx + rng.uniform(-6, 6, n)) + 0.5
+    py = np.floor(my + rng.uniform(-6, 6, n)) + 0.5
+    sig = np.array([float(_sigma_at(f[j:j + 1], px[j], py[j])[0])
+                    for j in range(n)])
+    choices = [C255 * (1 + k * ULP) for k in (-1, 0, 1, 2, 8)] + \
+        [np.float32(0.9999), np.float32(1.0), np.float32(0.0),
+         np.float32(-0.5)]
+    op = np.empty(n, np.float32)
+    for j in range(n):
+        if j % 2 and sig[j] < 5.5:           # the cut-off at one pixel
+            op[j] = np.float32(C255 * np.exp(sig[j])) \
+                * (1 + ULP * ((j // 2) % 5 - 2))
+        else:
+            op[j] = choices[j % len(choices)]
+    f[:, 5] = torch.from_numpy(op)
+    return f
+
+
+def _degenerate_gaussians3d(seed=33, n=300):
+    """Finite conics at the edges, in this order: det -> 0 (b^2 = ac (1 -
+    1e-8..1e-2)), huge (1e3..1e8) and tiny (1e-38..1e-6, subnormal
+    included) a and c, a <= 0, and last the indefinite ones (b^2 > ac),
+    which saturate most pixels they reach; opacities in (0.05, 1]."""
+    rng = np.random.default_rng(seed)
+    k = n // 5
+    a = 10.0 ** rng.uniform(-3, 0, n)
+    c = 10.0 ** rng.uniform(-3, 0, n)
+    sgn = rng.choice([-1.0, 1.0], n)
+    b = sgn * np.sqrt(a * c * (1 - 10.0 ** rng.uniform(-8, -2, n)))
+    big = 10.0 ** rng.uniform(3, 8, (2, k))
+    a[k:2 * k], c[k:2 * k] = big
+    b[k:2 * k] = rng.uniform(-0.5, 0.5, k) * np.sqrt(big[0] * big[1])
+    tiny = 10.0 ** rng.uniform(-40, -6, (2, k))
+    a[2 * k:3 * k], c[2 * k:3 * k] = tiny
+    b[2 * k:3 * k] = rng.uniform(-0.5, 0.5, k) * np.sqrt(tiny[0] * tiny[1])
+    a[3 * k:4 * k] = -10.0 ** rng.uniform(-3, 0, k)
+    b[4 * k:] = sgn[4 * k:] * np.sqrt(a[4 * k:] * c[4 * k:] * (
+        1 + 10.0 ** rng.uniform(-6, 0, n - 4 * k)))
+    return _fields3d(rng.uniform(0, 64, n), rng.uniform(0, 64, n), a, b, c,
+                     rng.uniform(0.05, 1.0, n), rng)
+
+
+def _on_box_gaussians3d(seed=34, n=200):
+    """Gaussians whose support box ends exactly on a pixel centre: the mean
+    moved (in float32) until the box's right edge (even rows) or top edge
+    (odd rows) is a pixel centre of the 64x64 grid."""
+    rng = np.random.default_rng(seed)
+    a, b, c = _conics(rng, n, log_scale=(-2.0, 0.0), log_kappa=(0.0, 2.0))
+    f = _fields3d(rng.uniform(8, 56, n), rng.uniform(8, 56, n), a, b, c,
+                  rng.uniform(0.05, 1.0, n), rng)
+    edge = torch.where(torch.arange(n) % 2 == 0, 1, 2)
+    col = torch.where(edge == 1, 0, 1)
+    for _ in range(4):
+        box = raster3d.support_box(f)
+        at = box.gather(1, edge[:, None])[:, 0]
+        f[:, 0:2].scatter_add_(1, col[:, None], (torch.floor(at) + 0.5
+                                                 - at)[:, None])
+    return f
+
+
+def _stack_gaussians3d(seed=35):
+    """An 800-deep stack of broad opaque gaussians over the whole 64x64
+    grid, and 200 gaussians repeated five times at the same mean (ties)."""
+    rng = np.random.default_rng(seed)
+    n = 800
+    stack = _fields3d(rng.uniform(16, 48, n), rng.uniform(16, 48, n),
+                      np.full(n, 2e-3), np.zeros(n), np.full(n, 2e-3),
+                      np.full(n, 0.95), rng)
+    a, b, c = _conics(rng, 200, log_scale=(-1.5, -0.5), log_kappa=(0, 1))
+    dup = _fields3d(rng.uniform(0, 64, 200), rng.uniform(0, 64, 200), a, b,
+                    c, rng.uniform(0.1, 0.9, 200), rng).repeat_interleave(
+                        5, 0)
+    return torch.cat([dup, stack])
+
+
+def _inputs_3dgs(dev, case):
+    """K1's inputs: the cloud of `_scene` binned at 64x64 or 200x120, or
+    ("margins") the skip tests' gaussians (opacities at the cut-off's
+    edges, boxes ending on a pixel centre, degenerate and indefinite
+    conics, every conditioning) and then the duplicates and the saturating
+    stack, every gaussian in every tile of a 64x64 grid: tile t takes the
+    four edge-case groups rotated by t, so that each group comes first,
+    before the pixels saturate, in one tile."""
+    if case == "margins":
+        groups = [_opacity_gaussians3d(), _on_box_gaussians3d(),
+                  _degenerate_gaussians3d(), _random_gaussians3d()]
+        f = torch.cat([*groups, _stack_gaussians3d()]).to(dev)
+        ntx, nty = 2, 2
+        ids = torch.arange(f.shape[0], dtype=torch.int32).split(
+            [len(g) for g in groups] + [f.shape[0] - sum(map(len, groups))])
+        gid = torch.cat([torch.cat([*ids[t:4], *ids[:t], ids[4]])
+                         for t in range(ntx * nty)]).to(dev)
+        starts = torch.arange(0, gid.shape[0] + 1, f.shape[0],
+                              dtype=torch.int32, device=dev)
+        return f, gid, starts, ntx, nty
+    w, h = (int(x) for x in case.split("x"))
+    g = _scene(dev)
+    cam = lookat_camera(width=w, height=h, eye=(0, 0, -4), device=dev)
     ri = build_raster_inputs(g["means"], g["quats"], g["scales"],
                              g["opacities"], g["colors"], cam.viewmat, cam.K,
                              w, h)
-    args = (ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
+    return (ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
             ri.grid.n_tiles_x, ri.grid.n_tiles_y)
+
+
+CASES_3D = ["64x64", "200x120", "margins"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES_3D)
+def test_kernel_matches_plain(card, case):
+    """K1 against its plain version: acc within 2e-5 (+ rtol 2e-4),
+    exp(log T) within 1e-4, i_fin within 1, n_contrib equal or at the stop;
+    on the margins case every pixel stops."""
+    args = _inputs_3dgs(card, case)
     before = raster3d.KERNEL.launches
     acc_k, logT_k, nc_k = raster3d.rasterize_fwd(*args)
     torch.cuda.synchronize()
@@ -56,25 +209,20 @@ def test_kernel_matches_plain(card, size):
     assert (logT_k[:, 1] - logT_p[:, 1]).abs().max() <= 1
     assert raster3d.n_contrib_off_the_stop(*args[:4], nc_k, logT_k[:, 0],
                                            nc_p, logT_p[:, 0]) == 0
+    if case == "margins":
+        assert (logT_p[:, 0] <= raster3d.LOG_T_EPS).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("size", [(64, 64), (200, 120)])
-def test_bwd_kernel_matches_plain(card, size):
+@pytest.mark.parametrize("case", CASES_3D)
+def test_bwd_kernel_matches_plain(card, case):
     """K2 on K1's own records and seeded cotangents: per field within
     2e-4 x its max |grad| (atomics sum in no fixed order), exact zeros for
     gaussians no pixel walked."""
-    w, h = size
-    g = _scene(card)
-    cam = lookat_camera(width=w, height=h, eye=(0, 0, -4), device=card)
-    ri = build_raster_inputs(g["means"], g["quats"], g["scales"],
-                             g["opacities"], g["colors"], cam.viewmat, cam.K,
-                             w, h)
-    args = (ri.fields, ri.inst.gauss_id, ri.inst.tile_starts,
-            ri.grid.n_tiles_x, ri.grid.n_tiles_y)
+    args = _inputs_3dgs(card, case)
     _, logT, nc = raster3d.rasterize_fwd(*args)
     gen = torch.Generator().manual_seed(4)
-    n_tiles = ri.grid.n_tiles
+    n_tiles = args[3] * args[4]
     d_acc = torch.randn((n_tiles, raster3d.N_ACC, raster3d.P),
                         generator=gen).to(card)
     d_logT = torch.randn((n_tiles, raster3d.P), generator=gen).to(card)
@@ -87,10 +235,10 @@ def test_bwd_kernel_matches_plain(card, size):
     want = raster3d.rasterize_bwd_plain(*b_args)
     err = (got - want).abs().amax(0)
     assert (err <= 2e-4 * want.abs().amax(0)).all(), err
-    starts = ri.inst.tile_starts.tolist()
-    walked = torch.zeros(ri.fields.shape[0], dtype=torch.bool, device=card)
+    starts = args[2].tolist()
+    walked = torch.zeros(args[0].shape[0], dtype=torch.bool, device=card)
     for t in range(n_tiles):
-        ids = ri.inst.gauss_id[starts[t]:starts[t] + int(nc[t].max())]
+        ids = args[1][starts[t]:starts[t] + int(nc[t].max())]
         walked[ids.long()] = True
     assert (got[~walked] == 0).all()
 
@@ -126,7 +274,6 @@ def test_cuda_render_matches_dense(card):
 
 
 SURFEL_KEYS = ("means", "quats", "scales", "opacities", "colors")
-C255 = np.float32(1.0 / 255.0)
 
 
 def _surfels(blocks, w=64, h=64):
