@@ -79,9 +79,27 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                statistics), timed by phase; then 5 steps at the new
                capacity with a recalibrated cap: K1 and K2 once per step,
                K3, K4 and the tools never, nothing dropped, loss finite
- 10. report    per-view and per-step timings, the layer breakdowns, the
-               densify epoch, the tools' tables, the kernels line, and
-               last the device line
+ 10. train CLI `cli.make_synthetic` writes the flagship512 dataset (24
+               train and 4 test views at 512x512 from 12,000 gaussians,
+               seed 0); `cli.train.main` on configs/synthetic/flagship512.yaml
+               trains 600 coarse iterations (densify epochs on the
+               config's schedule, a checkpoint) and evaluates the test set;
+               the saved PLY and MLPs read back bit for bit; 20 more
+               iterations of that trainer under the profiler; a resume from
+               the checkpoint (its first loss within the last 20 before
+               it); a fine stage of 250 iterations from the coarse output
+               (MLPs frozen bit for bit, the coarse rows equal to the base
+               copies after every epoch); 60 iterations as 2DGS. Each run
+               sets the counts to 0 just before it and reads them after:
+               K1 and K2 once per step (K3 and K4 for 2DGS) plus K1 once
+               per evaluation render, no tool; losses finite and lower at
+               the end, at least two densify epochs, every overflow
+               recalibrated, nothing dropped in the evaluation; timed
+               (iterations/s, host time outside the step, densify epochs,
+               evaluation per view, test PSNR and SSIM)
+ 11. report    per-view and per-step timings, the layer breakdowns, the
+               densify epoch, the train CLI, the tools' tables, the
+               kernels line, and last the device line
 
 Prints nothing after a failure and exits non-zero without a card or
 without the package beside it.
@@ -755,6 +773,324 @@ def _serve_report(sv, card):
             "profiled_request": _profile_report(sv["prof"]), "card": card}
 
 
+class _Wrapped:
+    """Swap `module.name` for `make(original)` inside a with-block."""
+
+    def __init__(self, module, name, make):
+        self.module, self.name, self.make = module, name, make
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.make(self.orig))
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _train_cli(root, kernels, dev, n_train=24, n_test=4, size=512,
+               n_gauss=12000, coarse_its=600, window=20, resume_its=20,
+               fine_its=250, its_2d=60):
+    """Phase 10: the port's train CLI on the flagship512 config, in a
+    temporary directory: the dataset (`cli.make_synthetic`), a coarse run
+    with a checkpoint and the test-set evaluation, the saved files read
+    back, a profiled window of `window` more iterations of the coarse
+    trainer, a resume from the checkpoint, a fine stage from the coarse
+    output and a 2DGS run. `kernels` are K1, K2, K3, K4 and then the tools;
+    each CLI run sets every count to 0 just before it and reads them just
+    after: K1 and K2 once per step of a 3DGS run (K3 and K4 for 2DGS) plus
+    K1 once per evaluation render (re-renders after a counted overflow
+    included), nothing else. Returns the phase's report."""
+    import shutil
+    import tempfile
+
+    import torch
+    import yaml
+    from horizongs_tpu_torch.cli.make_synthetic import main as make_synthetic
+    from horizongs_tpu_torch.cli.train import main as train_main
+    from horizongs_tpu_torch.data import scene as scene_mod
+    from horizongs_tpu_torch.io.checkpoints import (
+        load_anchor_ply, load_mlp_checkpoints)
+    from horizongs_tpu_torch.tools.timing import device_profile
+    from horizongs_tpu_torch.train import evaluate as evaluate_mod
+    from horizongs_tpu_torch.train import trainer as trainer_mod
+    n_k = len(kernels)
+    zero = (0,) * n_k
+    runs, evals, renders, scenes, fine_epochs = [], [], [], [], []
+
+    def wrap_train(orig):
+        def train(self, *args, **kw):
+            before = _counts(kernels)
+            t0 = time.perf_counter()
+            hist = orig(self, *args, **kw)
+            torch.cuda.synchronize()
+            runs.append({"trainer": self, "hist": hist,
+                         "seconds": time.perf_counter() - t0,
+                         "launches": tuple(a - b for a, b in zip(
+                             _counts(kernels), before))})
+            return hist
+        return train
+
+    def wrap_render_set(orig):
+        def render_set(*args, **kw):
+            out = orig(*args, **kw)
+            evals.append(out[3])
+            return out
+        return render_set
+
+    def wrap_render(orig):
+        def render(*args, **kw):
+            pkg = orig(*args, **kw)
+            renders.append(int(pkg["n_dropped"]))
+            return pkg
+        return render
+
+    class TimedScene(scene_mod.Scene):
+        def __init__(self, *args, **kw):
+            t0 = time.perf_counter()
+            super().__init__(*args, **kw)
+            scenes.append({"scene": self,
+                           "seconds": time.perf_counter() - t0,
+                           "camera_bytes": self.camera_bytes()})
+
+    def wrap_densify(orig):
+        # fine stage: after every epoch, the coarse-level rows are the
+        # base copies (rolled back before the epoch), their gaussian
+        # scales under the epoch's clamp
+        def run_densify(cfg, op, st, it, **kw):
+            out = orig(cfg, op, st, it, **kw)
+            if kw.get("stage") == "fine":
+                base = scenes[-1]["scene"].base
+                rows = torch.nonzero(out.level[:out.n]
+                                     < cfg.aerial_levels).squeeze(1)
+                a = out.anchor_state()
+                ok = rows.numel() == base["anchor"].shape[0]
+                for k in ("anchor", "offset", "feat", "rotation",
+                          "scaling_log"):
+                    want = torch.from_numpy(base[k]).to(dev)
+                    if k == "scaling_log":
+                        want[:, 3:] = want[:, 3:].clamp_max(0.05)
+                    ok = ok and torch.equal(
+                        getattr(a, k)[rows].detach(), want)
+                fine_epochs.append({"iteration": it, "coarse_rows":
+                                    rows.numel(), "equal_to_base": ok})
+            return out
+        return run_densify
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        data = str(work / "data")
+        t0 = time.perf_counter()
+        make_synthetic([data, "--n_train", str(n_train), "--n_test",
+                        str(n_test), "--width", str(size), "--height",
+                        str(size), "--n_gauss", str(n_gauss), "--seed", "0"])
+        torch.cuda.synchronize()
+        dataset_s = time.perf_counter() - t0
+        with open(root / "configs" / "synthetic" / "flagship512.yaml") as f:
+            base_cfg = yaml.safe_load(f)
+
+        def config(name, **kwargs):
+            c = json.loads(json.dumps(base_cfg))
+            c["model_params"]["model_config"]["kwargs"].update(
+                kwargs.pop("model_kwargs", {}))
+            c["model_params"].update(kwargs)
+            path = work / f"{name}.yaml"
+            with open(path, "w") as f:
+                yaml.safe_dump(c, f)
+            return str(path)
+
+        phase_launches = [0] * n_k
+
+        def cli(name, cfg_path, *argv):
+            """One CLI run with every count at 0 just before it: (run,
+            launches, evaluation render calls, seconds)."""
+            n_runs, n_renders = len(runs), len(renders)
+            _reset(kernels)
+            t0 = time.perf_counter()
+            rc = train_main(["--config", cfg_path, "--source_path", data,
+                             "--model_path", str(work / name),
+                             "--disable_tb", *argv])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            total = _counts(kernels)
+            _require(rc == 0, f"train CLI {name} returned {rc}")
+            _require(len(runs) == n_runs + 1,
+                     f"train CLI {name}: {len(runs) - n_runs} train runs")
+            for i, n in enumerate(total):
+                phase_launches[i] += n
+            return runs[-1], total, renders[n_renders:], seconds
+
+        def check_launches(name, run, total, eval_calls, per_step):
+            n = len(run["hist"])
+            want = tuple(n * e for e in per_step) + zero[len(per_step):]
+            _require(run["launches"] == want,
+                     f"{name}: kernels launched {run['launches']} in {n} "
+                     f"iterations, expected {want}")
+            ev = tuple(t - r for t, r in zip(total, run["launches"]))
+            _require(ev == (len(eval_calls),) + zero[1:],
+                     f"{name}: evaluation launched {ev} for "
+                     f"{len(eval_calls)} renders")
+            return ev
+
+        def losses_ok(name, hist):
+            _require(all(math.isfinite(x) for x in hist),
+                     f"{name}: a loss is not finite")
+
+        with _Wrapped(trainer_mod.Trainer, "train", wrap_train), \
+                _Wrapped(trainer_mod, "run_densify", wrap_densify), \
+                _Wrapped(evaluate_mod, "render_set", wrap_render_set), \
+                _Wrapped(evaluate_mod, "render", wrap_render), \
+                _Wrapped(scene_mod, "Scene", lambda orig: TimedScene):
+            # coarse
+            cfg3d = config("coarse")
+            run, total, ev_calls, coarse_s = cli(
+                "coarse", cfg3d, "--iterations", str(coarse_its),
+                "--checkpoint_iterations", str(coarse_its))
+            tr, hist = run["trainer"], run["hist"]
+            ev_coarse = check_launches("coarse", run, total, ev_calls,
+                                       (1, 1))
+            losses_ok("coarse", hist)
+            _require(sum(hist[-50:]) < sum(hist[:50]),
+                     "coarse: loss did not fall over the run")
+            dens = tr.records["densify"]
+            _require(len(dens) >= 2 and any(d["added"] > 0 for d in dens),
+                     f"coarse: densify epochs {dens}")
+            overflows = tr.records["overflows"]
+            _require(all(o["widened"] or o["margin"] * 1.5 >
+                         tr.MARGIN_CEIL for o in overflows),
+                     f"an overflow was not recalibrated: {overflows}")
+            _require(ev_calls.count(0) == n_test,
+                     f"evaluation renders' dropped counts {ev_calls}")
+            out = work / "coarse"
+            it_dir = out / "point_cloud" / f"iteration_{coarse_its}"
+            for p in (it_dir / "point_cloud.ply", it_dir / "mlps.npz",
+                      out / f"chkpnt{coarse_its}.npz",
+                      out / "results_test.json"):
+                _require(p.is_file(), f"coarse: {p.name} not written")
+            with open(out / "results_test.json") as f:
+                res = json.load(f)[f"ours_{coarse_its}"]["all"]
+            _require(math.isfinite(res["PSNR"]), f"test PSNR {res}")
+
+            # read-back: the saved files equal the trained state's rows
+            st = tr.state.anchor_state()
+            got, _ = load_anchor_ply(str(it_dir / "point_cloud.ply"),
+                                     tr.cfg, device=dev)
+            differ = [k for k in ("anchor", "offset", "feat", "scaling_log",
+                                  "rotation", "level", "extra_level")
+                      if not torch.equal(getattr(got, k)[:st.n],
+                                         getattr(st, k)[:st.n].detach())]
+            mlps600 = load_mlp_checkpoints(str(it_dir), device=dev)
+            differ += [f"mlps.{n}" for (n, a), b in zip(
+                mlps600.named_parameters(),
+                tr.state.params.mlps.parameters()) if not torch.equal(a, b)]
+            _require(got.n == st.n and not differ,
+                     f"read-back differs from the trained state: {differ}")
+
+            # a profiled window of the coarse trainer, its steps built
+            n0 = len(runs)
+            _reset(kernels)
+            prof = device_profile(lambda: tr.train(
+                iterations=coarse_its + window, first_iter=coarse_its + 1))
+            win = runs[n0]
+            _require(win["launches"] == (window, window) + zero[2:],
+                     f"window launched {win['launches']}")
+            for i, n in enumerate(win["launches"]):
+                phase_launches[i] += n
+
+            # resume from the checkpoint
+            run_r, total_r, _, resume_s = cli(
+                "resume", cfg3d, "--start_checkpoint",
+                str(out / f"chkpnt{coarse_its}.npz"), "--iterations",
+                str(coarse_its + resume_its), "--skip_eval")
+            check_launches("resume", run_r, total_r, [], (1, 1))
+            losses_ok("resume", run_r["hist"])
+            last = hist[-20:]
+            _require(min(last) <= run_r["hist"][0] <= max(last),
+                     f"first resumed loss {run_r['hist'][0]} outside the "
+                     f"last 20 before the checkpoint {last}")
+
+            # fine stage from the coarse output
+            run_f, total_f, ev_f, fine_s = cli(
+                "fine", config("fine", pretrained_checkpoint=str(it_dir)),
+                "--iterations", str(fine_its))
+            ev_fine = check_launches("fine", run_f, total_f, ev_f, (1, 1))
+            losses_ok("fine", run_f["hist"])
+            tf = run_f["trainer"]
+            _require(tf.scene.stage == "fine" and tf.scene.frozen_mlps,
+                     "fine: not a fine stage")
+            _require(all(torch.equal(a, b) for a, b in zip(
+                tf.state.params.mlps.parameters(), mlps600.parameters())),
+                "fine: the frozen MLPs moved")
+            _require(fine_epochs and all(e["equal_to_base"]
+                                         for e in fine_epochs),
+                     f"fine: coarse rows after the epochs {fine_epochs}")
+            with open(work / "fine" / "results_test.json") as f:
+                res_f = json.load(f)[f"ours_{fine_its}"]["all"]
+            _require(math.isfinite(res_f["PSNR"]), f"fine PSNR {res_f}")
+
+            # 2DGS
+            run_2, total_2, _, s_2d = cli(
+                "surfel", config("surfel", model_kwargs={"gs_attr": "2D"}),
+                "--iterations", str(its_2d), "--skip_eval")
+            check_launches("2DGS", run_2, total_2, [], (0, 0, 1, 1))
+            losses_ok("2DGS", run_2["hist"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    it_ms, step_ms = tr.records["iteration_ms"], tr.records["step_ms"]
+    outside = [a - b for a, b in zip(it_ms, step_ms)]
+    busy = prof["busy_ms"] / window
+    return {
+        "dataset_s": dataset_s, "scene_load_s": scenes[0]["seconds"],
+        "camera_bytes_on_card": scenes[0]["camera_bytes"],
+        "coarse": {
+            "iterations": coarse_its, "cli_s": coarse_s,
+            "train_s": run["seconds"],
+            "iterations_per_s": coarse_its / run["seconds"],
+            "iteration_ms_p50": _median(it_ms),
+            "iteration_ms_p90": _pct(it_ms, 0.9),
+            "step_ms_p50": _median(step_ms),
+            "host_ms_outside_step_p50": _median(outside),
+            "host_ms_outside_step_mean": sum(outside) / len(outside),
+            "loss_first50_mean": sum(hist[:50]) / 50,
+            "loss_last50_mean": sum(hist[-50:]) / 50,
+            "densify_epochs": dens, "overflows": overflows,
+            "launches_train": run["launches"][:4],
+            "launches_eval": ev_coarse[:4],
+            "eval_renders": len(ev_calls),
+            "eval_ms_per_view": [t * 1e3 for t in evals[0]],
+            "test_psnr": res["PSNR"], "test_ssim": res["SSIM"],
+            "anchors_final": st.n, "capacity_final": got.capacity},
+        "window": {"iterations": window,
+                   "launches": win["launches"][:4],
+                   "wall_ms_per_iteration": prof["wall_ms"] / window,
+                   "device_busy_ms_per_iteration": busy,
+                   "device_idle_share": 1 - prof["busy_ms"]
+                   / prof["wall_ms"],
+                   "top_kernels_ms": sorted(
+                       prof["by_name"].items(), key=lambda kv: -kv[1])[:8]},
+        "resume": {"iterations": resume_its, "cli_s": resume_s,
+                   "first_loss": run_r["hist"][0],
+                   "last20_before": [min(last), max(last)],
+                   "launches": run_r["launches"][:4]},
+        "fine": {"iterations": fine_its, "cli_s": fine_s,
+                 "epochs": fine_epochs,
+                 "densify": tf.records["densify"],
+                 "launches_train": run_f["launches"][:4],
+                 "launches_eval": ev_fine[:4],
+                 "test_psnr": res_f["PSNR"], "test_ssim": res_f["SSIM"]},
+        "surfel_2dgs": {"iterations": its_2d, "cli_s": s_2d,
+                        "launches": run_2["launches"][:4],
+                        "loss_first": run_2["hist"][0],
+                        "loss_last": run_2["hist"][-1]},
+        "launches": tuple(phase_launches)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1321,9 +1657,24 @@ def main() -> int:
     _require(all(math.isfinite(x) for x in losses_d), f"loss {losses_d}")
     _require(max(dropped_d) == 0, f"instances dropped: {dropped_d}")
 
-    # 10. report -------------------------------------------------------------
+    # 10. the train CLI on the flagship512 config ----------------------------
+    t_cli = time.perf_counter()
+    cli10 = _train_cli(root, ALL, dev)
+    cli10["seconds"] = time.perf_counter() - t_cli
+    c10 = cli10["coarse"]
+    print(f"train CLI: {c10['iterations']} coarse iterations at "
+          f"{c10['iterations_per_s']:.2f} it/s (p50 "
+          f"{c10['iteration_ms_p50']:.2f} ms, host outside step p50 "
+          f"{c10['host_ms_outside_step_p50']:.3f} ms), test PSNR "
+          f"{c10['test_psnr']:.3f}; window busy "
+          f"{cli10['window']['device_busy_ms_per_iteration']:.3f} ms/it, "
+          f"idle {cli10['window']['device_idle_share']:.3f}; "
+          f"{cli10['seconds']:.1f} s", flush=True)
+
+    # 11. report -------------------------------------------------------------
     paths = {"serve_3dgs": sv["launches"], "train_3dgs": tr["launches"],
-             "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"]}
+             "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"],
+             "train_cli": cli10["launches"]}
 
     def launches(i):
         return {p: n[i] for p, n in paths.items()}
@@ -1361,6 +1712,12 @@ def main() -> int:
         "step_ms_after": step_ms_d,
         "launches_after": dict(zip(("K1", "K2", "K3", "K4"),
                                    launches_d[:4]))}))
+    print(json.dumps({
+        "slice": "train CLI flagship512 (configs/synthetic/flagship512.yaml)"
+                 ", coarse -> resume -> fine, 2DGS (cuda)", "card": card,
+        "step_busy_ms_1080p_phase6":
+            _profile_report(tr["prof"])["device_busy_ms"],
+        **{k: v for k, v in cli10.items() if k != "launches"}}))
     print(json.dumps({"slice": "tools T1-T3 (cuda)", "card": card,
                       "seconds": tools_s,
                       "T1_ms": t1_times, "T1_equal_l_sweep": t1_sweep,

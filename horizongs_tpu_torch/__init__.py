@@ -8,8 +8,11 @@ wrapper takes the plain version only for tensors that lie on the CPU.
 
 Layer map (bottom -> top):
   device.py  default device (cuda, or raise) and TF32 switches
+  config.py  the YAML config's three namespaces and their defaults
   core/      cameras, rotations, spherical harmonics
-  data/      synthetic scenes and camera rigs
+  io/        PLY codec, anchor PLYs, MLP weights, training checkpoints
+  data/      dataset readers (Blender, COLMAP, city, UCGS), camera loading,
+             the scene, synthetic scenes and the synthetic dataset writer
   models/    model config, MLP decoders, anchor tables and LOD decode
   ops/       projection, tile binning, dense oracles, the 3DGS compositors
              K1/K2 (`ops/raster3d.py` + `csrc/raster3d_*.cu`), the 2DGS
@@ -17,7 +20,9 @@ Layer map (bottom -> top):
              their wrappers (`ops/raster_cuda.py`)
   kernels.py nvcc build, load and launch count of the CUDA sources
   render.py  the serving entry point: camera + model -> images
-  train/     losses, schedules, Adam, the training step
+  train/     losses, schedules, Adam, the training step, densification,
+             the trainer and the evaluation
+  cli/       the train entry point and the synthetic dataset writer
   convert.py the JAX package's parameters (as numpy) -> this package
 """
 

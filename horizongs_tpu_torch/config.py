@@ -1,10 +1,11 @@
-"""Optimiser and pipeline settings: the `optim_params` and
-`pipeline_params` namespaces of Horizon-GS.
+"""Config system: YAML with three namespaces, `model_params`,
+`optim_params` and `pipeline_params`, as Horizon-GS's `parse_cfg`.
 
-A copy of the part of `horizongs_tpu/config.py` the training step reads
-(this package imports nothing of the JAX package), with the same defaults,
-which follow `config/ours/matrix_city/block_small/coarse.yaml`. The model
-namespace is `models/config.py::ModelConfig`.
+A copy of `horizongs_tpu/config.py` (this package imports nothing of the
+JAX package), with the same defaults, which follow
+`config/ours/matrix_city/block_small/coarse.yaml`; the defaults layer lets
+tests and programmatic use skip full YAML files. The model's
+`model_config` dict becomes `models/config.py::ModelConfig`.
 """
 from __future__ import annotations
 
@@ -44,6 +45,17 @@ DEFAULT_PIPELINE = dict(
     no_prefilter_step=0,
 )
 
+DEFAULT_MODEL = dict(
+    model_config={"name": "GaussianLoDModel", "kwargs": {}},
+    pretrained_checkpoint="", global_appearance="",
+    dataset_name="", scene_name="", images="images", resolution=-1,
+    white_background=False, random_background=False,
+    resolution_scales=[1.0], data_device="cpu", eval=True, ratio=1,
+    data_format="colmap", add_mask=False, add_depth=False,
+    add_aerial=True, add_street=True, scale=1.0, center=[0, 0, 0],
+    source_path="", model_path="", llffhold=32,
+)
+
 
 def make_namespace(defaults: dict, overrides: dict | None = None) -> SimpleNamespace:
     d = dict(defaults)
@@ -57,3 +69,21 @@ def make_optim(**overrides) -> SimpleNamespace:
 
 def make_pipeline(**overrides) -> SimpleNamespace:
     return make_namespace(DEFAULT_PIPELINE, overrides)
+
+
+def make_model_params(**overrides) -> SimpleNamespace:
+    return make_namespace(DEFAULT_MODEL, overrides)
+
+
+def parse_cfg(cfg: dict):
+    """YAML dict -> (lp, op, pp) namespaces with defaults filled in."""
+    lp = make_namespace(DEFAULT_MODEL, cfg.get("model_params", {}))
+    op = make_namespace(DEFAULT_OPTIM, cfg.get("optim_params", {}))
+    pp = make_namespace(DEFAULT_PIPELINE, cfg.get("pipeline_params", {}))
+    return lp, op, pp
+
+
+def load_yaml(path: str) -> dict:
+    import yaml
+    with open(path) as f:
+        return yaml.safe_load(f)

@@ -10,7 +10,7 @@ tensors on the requested device.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -22,9 +22,13 @@ def fov_to_focal(fov: float, pixels: int) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
 
 
+def focal_to_fov(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 def world_to_view(R: np.ndarray, t: np.ndarray) -> np.ndarray:
     """4x4 float32 world-to-camera matrix (`getWorld2View2` without the
-    recentering, which the dataset readers of a later slice bring)."""
+    recentering: the dataset readers recenter the poses themselves)."""
     Rt = np.zeros((4, 4), dtype=np.float64)
     Rt[:3, :3] = R.T
     Rt[:3, 3] = t
@@ -37,7 +41,10 @@ class Camera(NamedTuple):
 
     `viewmat` is world->camera (4, 4), `K` the intrinsics (3, 3) at the
     render resolution, `cam_center` the camera origin in world space (for
-    view directions and the LOD distance rule)."""
+    view directions and the LOD distance rule). A camera loaded from a
+    dataset (`data/camera_build.py`) also carries its supervision: the
+    image (H, W, 3), the alpha mask (H, W, 1), and where the dataset has
+    depth the inverse depth and its mask (H, W, 1); None when absent."""
     viewmat: torch.Tensor
     K: torch.Tensor
     width: int
@@ -45,6 +52,12 @@ class Camera(NamedTuple):
     cam_center: torch.Tensor
     uid: int = 0                  # camera index (appearance embedding row)
     resolution_scale: float = 1.0
+    image: Optional[torch.Tensor] = None
+    alpha_mask: Optional[torch.Tensor] = None
+    invdepth: Optional[torch.Tensor] = None
+    depth_mask: Optional[torch.Tensor] = None
+    image_type: str = "aerial"    # "aerial" | "street"
+    subset: str = ""              # evaluation subset tag (UCGS splits)
 
 
 def make_camera(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,

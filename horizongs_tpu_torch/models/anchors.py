@@ -207,11 +207,13 @@ def init_anchor_state_from_points(
     points: np.ndarray,
     capacity: Optional[int] = None,
     device: DeviceLike = None,
+    weed_fn=None,
 ) -> AnchorState:
     """The initial padded anchor table from a raw point cloud: one voxel
     grid for the flat model (median-KNN voxel size if voxel_size <= 0),
-    the octree sample for the LOD model (the camera-based weed-out arrives
-    with the trainer)."""
+    the octree sample for the LOD model. `weed_fn(positions, levels)`,
+    when given, returns the rows to keep (`Scene` passes the camera
+    weed-out, `weed_out_mask`)."""
     dev = resolve_device(device)
     points = np.asarray(points, dtype=np.float32)
     voxel_size = cfg.voxel_size
@@ -222,6 +224,10 @@ def init_anchor_state_from_points(
             voxel_size = float(np.median(knn_mean_sq_dist(points, 4)))
         pts = voxelize(points, voxel_size, cfg.padding).astype(np.float32)
         levels = np.zeros(pts.shape[0], dtype=np.int32)
+
+    if weed_fn is not None:
+        keep = weed_fn(pts, levels)
+        pts, levels = pts[keep], levels[keep]
 
     n = pts.shape[0]
     C = capacity or round_capacity(n)

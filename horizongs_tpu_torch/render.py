@@ -91,12 +91,15 @@ def render(cam: Camera,
            add_prefilter: bool = True,
            rasterizer: str = "cuda",
            instance_cap: Optional[int] = None,
-           means2d_probe: Optional[torch.Tensor] = None) -> dict:
+           means2d_probe: Optional[torch.Tensor] = None,
+           active_sh_degree: Optional[int] = None) -> dict:
     """`instance_cap`: the (gaussian, tile) instance capacity of the cuda
     path (default max(4N, G)); calibrate it with `count_render_instances`
     and `ops.raster_cuda.suggest_instance_cap`. Overflow is counted, never
     silent (`pkg["n_dropped"]`). `means2d_probe`: see the module
-    docstring."""
+    docstring. `active_sh_degree`: for SH colours, the degree evaluated
+    (the trainer raises it every 1000 steps); None evaluates the
+    configuration's maximum. RGB colours ignore it."""
     _check_gs_attr(cfg)
     if rasterizer not in ("cuda", "dense"):
         raise ValueError(f"Unknown rasterizer: {rasterizer}")
@@ -105,7 +108,10 @@ def render(cam: Camera,
     if cfg.color_attr != "RGB":
         colors = colors.reshape(-1, cfg.color_dim // 3, 3)
 
-    kw = dict(sh_degree=cfg.max_sh_degree, render_mode=cfg.render_mode,
+    sh_degree = cfg.max_sh_degree
+    if sh_degree is not None and active_sh_degree is not None:
+        sh_degree = active_sh_degree
+    kw = dict(sh_degree=sh_degree, render_mode=cfg.render_mode,
               means2d_probe=means2d_probe)
     if rasterizer == "cuda":
         kw["cap"] = instance_cap
@@ -147,7 +153,8 @@ def count_render_instances(cam: Camera, cfg: ModelConfig, mlps: MlpDecoders,
     """Tile-instance count the cuda path enumerates for this view with the
     current model: LOD mask -> decode -> projection + lossless cull + AABB
     spans. Take the max over a few cameras to calibrate
-    `render(instance_cap=...)` via `suggest_instance_cap`."""
+    `render(instance_cap=...)` via `suggest_instance_cap`. Colours do not
+    enter the count, so it takes no SH degree."""
     _check_gs_attr(cfg)
     with torch.no_grad():
         dec = decode_view(cam, cfg, mlps, state, add_prefilter)

@@ -66,12 +66,16 @@ def init_adam(params: TrainableParams) -> AdamState:
         t=0)
 
 
-def lr_groups(lrs: dict, frozen_mlps: bool = False) -> dict:
-    """The per-group LRs of `group_lrs`, with 0 for frozen MLPs (their
-    moments are still updated), as the JAX package's `lr_tree`."""
+def lr_groups(lrs: dict, frozen_mlps: bool = False,
+              frozen_appearance: bool = False) -> dict:
+    """The per-group LRs of `group_lrs`, with 0 for frozen MLPs and a
+    frozen appearance table (their moments are still updated), as the JAX
+    package's `lr_tree`."""
     out = dict(lrs)
     if frozen_mlps:
         out.update({k: 0.0 for k in MLP_GROUPS})
+    if frozen_appearance:
+        out["appearance"] = 0.0
     return out
 
 

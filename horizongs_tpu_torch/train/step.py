@@ -107,9 +107,14 @@ def camera_tensors(cam: Camera, image: Optional[torch.Tensor] = None,
                    invdepth: Optional[torch.Tensor] = None,
                    depth_mask: Optional[torch.Tensor] = None,
                    do_stats: bool = False) -> CameraTensors:
-    """Absent targets become zeros (image, depth) or ones (alpha mask), as
-    in the JAX package."""
+    """A target not passed is the camera's own (a camera loaded from a
+    dataset carries them); absent there too, it becomes zeros (image,
+    depth) or ones (alpha mask), as in the JAX package."""
     H, W, dev = cam.height, cam.width, cam.viewmat.device
+    image = image if image is not None else cam.image
+    alpha_mask = alpha_mask if alpha_mask is not None else cam.alpha_mask
+    invdepth = invdepth if invdepth is not None else cam.invdepth
+    depth_mask = depth_mask if depth_mask is not None else cam.depth_mask
     zero_img = torch.zeros((H, W, 1), dtype=torch.float32, device=dev)
     return CameraTensors(
         viewmat=cam.viewmat, K=cam.K, cam_center=cam.cam_center,
@@ -190,16 +195,23 @@ class TrainStep:
     metrics)."""
 
     def __init__(self, cfg: ModelConfig, opt, height: int, width: int,
-                 frozen_mlps: bool, add_prefilter: bool, rasterizer: str,
-                 instance_cap: Optional[int]):
+                 spatial_lr_scale: float, frozen_mlps: bool,
+                 add_prefilter: bool, rasterizer: str,
+                 active_sh_degree: Optional[int],
+                 background: Optional[torch.Tensor],
+                 frozen_appearance: bool, instance_cap: Optional[int]):
         if rasterizer not in ("cuda", "dense"):
             raise ValueError(f"Unknown rasterizer: {rasterizer}")
         self.cfg, self.opt = cfg, opt
         self.height, self.width = height, width
+        self.spatial_lr_scale = float(spatial_lr_scale)
         self.frozen_mlps = frozen_mlps
+        self.frozen_appearance = frozen_appearance
+        self.background = background
         self.render_kw = dict(add_prefilter=add_prefilter,
                               rasterizer=rasterizer,
-                              instance_cap=instance_cap)
+                              instance_cap=instance_cap,
+                              active_sh_degree=active_sh_degree)
 
     def forward(self, state: TrainState, cam: CameraTensors,
                 iteration: float):
@@ -207,7 +219,8 @@ class TrainStep:
         cfg, opt = self.cfg, self.opt
         p = state.params
         dev = p.anchor.device
-        bg = torch.zeros(3, device=dev)
+        bg = (torch.zeros(3, device=dev) if self.background is None
+              else self.background.to(dev))
         probe = torch.zeros((p.offset.shape[0] * p.offset.shape[1], 2),
                             dtype=torch.float32, device=dev,
                             requires_grad=True)
@@ -245,8 +258,10 @@ class TrainStep:
                iteration: float, loss, aux, pkg, grads: Groups,
                probe_grad: torch.Tensor):
         """Adam (in place) and the statistics: (state, metrics)."""
-        lrs = lr_groups(group_lrs(self.opt, iteration, 1.0),
-                        frozen_mlps=self.frozen_mlps)
+        lrs = lr_groups(group_lrs(self.opt, iteration,
+                                  self.spatial_lr_scale),
+                        frozen_mlps=self.frozen_mlps,
+                        frozen_appearance=self.frozen_appearance)
         new_opt = adam_step(state.params, grads, state.opt, lrs)
         new_stats = update_stats(
             self.opt, state.stats, self.cfg.n_offsets,
@@ -281,19 +296,26 @@ class TrainStep:
 
 
 def build_train_step(cfg: ModelConfig, opt, height: int, width: int,
+                     spatial_lr_scale: float = 1.0,
                      frozen_mlps: bool = False,
                      add_prefilter: bool = True,
                      rasterizer: str = "cuda",
+                     active_sh_degree: Optional[int] = None,
+                     background: Optional[torch.Tensor] = None,
+                     frozen_appearance: bool = False,
                      instance_cap: Optional[int] = None) -> TrainStep:
     """The JAX package's `build_train_step`, eager: returns
     `step(state, cam: CameraTensors, iteration) -> (state, metrics)` with
     the metrics loss, l1, ssim, depth_l1, psnr, n_selected and n_dropped
     (tensors on the model's device). `rasterizer` is "cuda" (K1/K2, for
     2DGS K3/K4; their plain versions for CPU tensors) or "dense" (the
-    oracle, through
-    autograd). The background is black and the spatial LR scale 1.0, the
-    JAX defaults. Turns TF32 off for the process (the SSIM
-    convolutions)."""
+    oracle, through autograd). `spatial_lr_scale` scales the anchor and
+    offset LRs (the trainer passes the scene's camera extent);
+    `background` is a (3,) tensor, black when None; `active_sh_degree` is
+    `render`'s; `frozen_mlps` and `frozen_appearance` set those groups'
+    LRs to 0. The defaults are the JAX package's. Turns TF32 off for the
+    process (the SSIM convolutions)."""
     disable_tf32()
-    return TrainStep(cfg, opt, height, width, frozen_mlps, add_prefilter,
-                     rasterizer, instance_cap)
+    return TrainStep(cfg, opt, height, width, spatial_lr_scale, frozen_mlps,
+                     add_prefilter, rasterizer, active_sh_degree, background,
+                     frozen_appearance, instance_cap)

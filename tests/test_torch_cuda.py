@@ -678,3 +678,59 @@ def test_densify_matches_cpu_copy(card):
     want = dict(flat(b))
     for name, got in flat(a):
         np.testing.assert_array_equal(got, want[name], err_msg=name)
+
+
+@pytest.mark.cuda
+def test_trainer_on_card(card, tmp_path):
+    """The trainer on a written 128x128 dataset, 30 iterations through a
+    densify epoch: K1 and K2 once per step and K3, K4 never, every
+    overflow counted and recalibrated (the first iterations' models grow
+    fast past a capacity calibrated at 1.15x), and the saved PLY, MLPs and
+    checkpoint read back equal to the trained state."""
+    from horizongs_tpu_torch.config import (
+        make_model_params, make_optim, make_pipeline)
+    from horizongs_tpu_torch.data.scene import Scene
+    from horizongs_tpu_torch.data.synthetic import (
+        write_synthetic_blender_dataset)
+    from horizongs_tpu_torch.io import checkpoints as ck
+    from horizongs_tpu_torch.models.config import ModelConfig
+    from horizongs_tpu_torch.train.trainer import Trainer
+    data = str(tmp_path / "data")
+    write_synthetic_blender_dataset(data, n_train=9, n_test=2, width=128,
+                                    height=128, n_gauss=400, device=card)
+    cfg = ModelConfig(name="GaussianLoDModel", feat_dim=16, n_offsets=4,
+                      view_dim=3, voxel_size=0.1, fork=2, aerial_levels=2,
+                      street_levels=4, standard_dist=8.0)
+    lp = make_model_params(data_format="blender", source_path=data,
+                           resolution=1, model_path=str(tmp_path / "out"))
+    scene = Scene(lp, cfg, device=card)
+    op = make_optim(iterations=30, start_stat=2, update_from=10,
+                    update_interval=8, update_until=1000, feature_lr=0.03,
+                    densify_grad_threshold=1e-5, success_threshold=0.5)
+    tr = Trainer(scene.cfg, op, make_pipeline(vis_step=0), scene)
+    kernels = (raster3d.KERNEL, raster3d.KERNEL_BWD, raster2d.KERNEL_2D,
+               raster2d.KERNEL_2D_BWD)
+    for k in kernels:
+        k.launches = 0
+    hist = tr.train(save_iterations={30}, checkpoint_iterations={30})
+    assert tuple(k.launches for k in kernels) == (30, 30, 0, 0)
+    assert np.isfinite(hist).all()
+    assert all(o["widened"] for o in tr.records["overflows"])
+    assert tr.records["densify"] and tr.records["densify"][0]["added"] > 0
+    st = tr.state
+    it_dir = tmp_path / "out" / "point_cloud" / "iteration_30"
+    got, _ = ck.load_anchor_ply(str(it_dir / "point_cloud.ply"), scene.cfg,
+                                device=card)
+    for f in ("anchor", "offset", "feat", "scaling_log", "rotation",
+              "level", "extra_level"):
+        assert torch.equal(getattr(got, f)[:st.n],
+                           getattr(st.anchor_state(), f)[:st.n].detach()), f
+    mlps = ck.load_mlp_checkpoints(str(it_dir), device=card)
+    for a, b in zip(mlps.parameters(), st.params.mlps.parameters()):
+        assert torch.equal(a, b)
+    back, it = ck.load_train_checkpoint(str(tmp_path / "out" /
+                                            "chkpnt30.npz"), device=card)
+    assert it == 30 and back.n == st.n
+    for name, ts in st.params.groups().items():
+        for a, b in zip(ts, back.params.groups()[name]):
+            assert torch.equal(a.detach(), b.detach()), name
