@@ -69,7 +69,8 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                and on the first training step's K2 inputs, "full" against
                K2 within K2_TOL (`tools/profile_bwd_variants.py`); T3's
                table of device us per block at 255-4080 blocks beside
-               `zero_()`, launched back to back from a CUDA graph
+               `zero_()` and `copy_`, launched back to back from a CUDA
+               graph
                (`tools/profile_grid_overhead.py`). Serving and training
                (phases 4-7) must have launched none of them
   9. densify   one coarse `run_densify` epoch of the trained 3DGS state on
@@ -97,9 +98,29 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                recalibrated, nothing dropped in the evaluation; timed
                (iterations/s, host time outside the step, densify epochs,
                evaluation per view, test PSNR and SSIM)
- 11. report    per-view and per-step timings, the layer breakdowns, the
-               densify epoch, the train CLI, the tools' tables, the
-               kernels line, and last the device line
+ 11. serve CLI on phase 10's model directories, before they go, each
+               run with the counts set to 0 just before it and read just
+               after: `cli.render` renders the coarse model's 24 train and
+               4 test views (K1 once per view plus one per recalibration,
+               every image finite, nothing dropped) and a 30-frame
+               fly-through; `cli.metrics` scores the written PNGs (PSNR
+               within 0.1 dB of phase 10's, LPIPS null without weights) and
+               LPIPS from `init_random_weights(0)` on the card equals the
+               CPU's (rtol 1e-4); `serve_model` on 127.0.0.1:0 answers 8
+               requests at 1920x1088 made from the dataset's cameras, a
+               keep-alive and one request at scaling_modifier 0.5, each
+               frame byte for byte the uint8 quantisation of the in-process
+               `render()` of its camera (K1 once per image request plus
+               recalibrations); the flagship at SH1, view_dim 0 baked on the
+               card (equal to a CPU copy's bake within 1e-5), written,
+               read and rendered at 4 orbit views at 1920x1088 through K1
+               (within 2e-3 of the neural render); `cli.export_mesh` of the
+               2DGS model at 128^3 (K3 once per train view, a non-empty
+               finite mesh, the card's float64 TSDF equal to the CPU
+               copy's within 1e-9); timed
+ 12. report    per-view and per-step timings, the layer breakdowns, the
+               densify epoch, the train CLI, the serve CLI, the tools'
+               tables, the kernels line, and last the device line
 
 Prints nothing after a failure and exits non-zero without a card or
 without the package beside it.
@@ -793,7 +814,7 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
-def _train_cli(root, kernels, dev, n_train=24, n_test=4, size=512,
+def _train_cli(root, kernels, dev, then, n_train=24, n_test=4, size=512,
                n_gauss=12000, coarse_its=600, window=20, resume_its=20,
                fine_its=250, its_2d=60):
     """Phase 10: the port's train CLI on the flagship512 config, in a
@@ -805,7 +826,9 @@ def _train_cli(root, kernels, dev, n_train=24, n_test=4, size=512,
     each CLI run sets every count to 0 just before it and reads them just
     after: K1 and K2 once per step of a 3DGS run (K3 and K4 for 2DGS) plus
     K1 once per evaluation render (re-renders after a counted overflow
-    included), nothing else. Returns the phase's report."""
+    included), nothing else. Then `then(coarse_dir, surfel_dir, report)`
+    runs on the model directories (phase 11) before the directory goes.
+    Returns (the phase's report, `then`'s result)."""
     import shutil
     import tempfile
 
@@ -1039,6 +1062,10 @@ def _train_cli(root, kernels, dev, n_train=24, n_test=4, size=512,
                 "--iterations", str(its_2d), "--skip_eval")
             check_launches("2DGS", run_2, total_2, [], (0, 0, 1, 1))
             losses_ok("2DGS", run_2["hist"])
+        after = then(out, work / "surfel",
+                     {"coarse_its": coarse_its, "its_2d": its_2d,
+                      "test_psnr": res["PSNR"], "n_train": n_train,
+                      "n_test": n_test, "size": size})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1088,7 +1115,362 @@ def _train_cli(root, kernels, dev, n_train=24, n_test=4, size=512,
                         "launches": run_2["launches"][:4],
                         "loss_first": run_2["hist"][0],
                         "loss_last": run_2["hist"][-1]},
-        "launches": tuple(phase_launches)}
+        "launches": tuple(phase_launches)}, after
+
+
+def _wire_1080(cam, mod=1.0, W=1920, H=1088):
+    """A dataset camera as a viewer request at W x H: its pose, its
+    horizontal field of view, square pixels."""
+    import numpy as np
+    from horizongs_tpu_torch.viewer.server import request_message
+    fx = float(cam.K[0, 0]) * W / cam.width
+    K = np.array([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1]])
+    return request_message(cam.viewmat.cpu().numpy(), K, W, H,
+                           scaling_modifier=mod)
+
+
+def _serve_cli(coarse, surfel, info, kernels, dev):
+    """Phase 11: the serving and export entry points on the model
+    directories phase 10 wrote (the 600-iteration coarse model and the
+    60-iteration 2DGS one), each run with every count set to 0 just before
+    it and read just after; then the explicit model at the flagship's
+    widths. Returns the phase's report and its launches."""
+    import copy
+    import glob
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+    from horizongs_tpu_torch.cli import export_mesh as export_mod
+    from horizongs_tpu_torch.cli.common import load_config
+    from horizongs_tpu_torch.cli.metrics import main as metrics_main
+    from horizongs_tpu_torch.cli.metrics import read_images
+    from horizongs_tpu_torch.cli.render import main as render_main
+    from horizongs_tpu_torch.data.scene import Scene
+    from horizongs_tpu_torch.data.synthetic import (
+        orbit_cameras, random_gaussians)
+    from horizongs_tpu_torch.io.checkpoints import (
+        load_explicit_ply, save_explicit_ply)
+    from horizongs_tpu_torch.models import explicit as explicit_mod
+    from horizongs_tpu_torch.models.anchors import (
+        init_anchor_state_from_points)
+    from horizongs_tpu_torch.models.config import ModelConfig
+    from horizongs_tpu_torch.models.mlp import init_mlps
+    from horizongs_tpu_torch.ops.raster_cuda import suggest_instance_cap
+    from horizongs_tpu_torch.render import count_render_instances, render
+    from horizongs_tpu_torch.tools.timing import best_ms, device_profile
+    from horizongs_tpu_torch.train import evaluate as evaluate_mod
+    from horizongs_tpu_torch.train import lpips as lpips_mod
+    from horizongs_tpu_torch.utils.meshing import read_mesh_ply
+    from horizongs_tpu_torch.viewer import server as viewer_mod
+    n_k = len(kernels)
+
+    def launches(k1=0, k3=0):
+        return (k1, 0, k3) + (0,) * (n_k - 3)
+    phase = [0] * n_k
+    rep = {}
+
+    def counted(name, fn, want):
+        """fn() with every count at 0 just before and read just after;
+        `want(result)` is the launches it must have made."""
+        _reset(kernels)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = _counts(kernels)
+        exp = want(out)
+        _require(got == exp, f"{name}: kernels launched {got}, expected "
+                 f"{exp}")
+        for i, n in enumerate(got):
+            phase[i] += n
+        return out, seconds
+
+    # 1. render CLI: the sets, then a 30-frame fly-through --------------------
+    draws, sets = [], []
+
+    def wrap_draw(orig):
+        def draw(*args, **kw):
+            pkg = orig(*args, **kw)
+            draws.append(int(pkg["n_dropped"]))
+            return pkg
+        return draw
+
+    def wrap_set(orig):
+        def render_set(*args, **kw):
+            out = orig(*args, **kw)
+            sets.append(out)
+            return out
+        return render_set
+
+    def one_k1_per_render(_):
+        return launches(k1=len(draws))
+
+    with _Wrapped(evaluate_mod, "render", wrap_draw), \
+            _Wrapped(evaluate_mod, "render_set", wrap_set):
+        # K1 once per render: once per view, and once more for each
+        # re-render after a counted overflow and a recalibration
+        _, sets_s = counted("render CLI", lambda: render_main(
+            ["-m", str(coarse)]), one_k1_per_render)
+        views = info["n_train"] + info["n_test"]
+        n_draw = len(draws)
+        _require(draws.count(0) == views,
+                 f"render CLI: {n_draw} renders for {views} views, dropped "
+                 f"counts {draws}")
+        size = (info["size"], info["size"], 3)
+        for r in [r for out in sets for r in out[0]]:
+            _require(r.shape == size and bool(np.isfinite(r).all()),
+                     "render CLI: an image is not finite")
+        set_ms = [t * 1e3 for out in sets for t in out[3]]
+        draws.clear()
+        _, path_s = counted("fly-through", lambda: render_main(
+            ["-m", str(coarse), "--skip_train", "--skip_test",
+             "--path_video", "--path_frames", "30"]), one_k1_per_render)
+        frames = glob.glob(str(coarse / "path_frames" / "*.png"))
+        _require(len(frames) == 30 and draws.count(0) == 30,
+                 f"fly-through: {len(frames)} frames, dropped {draws}")
+    rep["render_cli"] = {
+        "views": views, "renders": n_draw, "seconds": sets_s,
+        "view_ms": set_ms, "view_ms_p50": _median(set_ms),
+        "path_frames": 30, "path_renders": len(draws), "path_s": path_s}
+
+    # 2. metrics: PSNR against phase 10's, LPIPS on the card against the CPU
+    it = info["coarse_its"]
+    _, metrics_s = counted("metrics", lambda: metrics_main(
+        ["-m", str(coarse)]), lambda _: launches())
+    with open(coarse / "results_test_metrics.json") as f:
+        res = json.load(f)[f"ours_{it}"]["all"]
+    _require(abs(res["PSNR"] - info["test_psnr"]) <= 0.1,
+             f"metrics PSNR {res['PSNR']} against phase 10's "
+             f"{info['test_psnr']}")
+    if lpips_mod.load_weights() is None:
+        _require(res["LPIPS"] is None, f"LPIPS {res['LPIPS']} without "
+                 "weights")
+    it_dir = coarse / "test" / f"ours_{it}"
+    renders, gts, _ = read_images(str(it_dir / "renders"), str(it_dir / "gt"))
+    params = lpips_mod.init_random_weights(0)
+    on_card = lpips_mod.lpips_fn(params=params, device=dev)
+    on_cpu = lpips_mod.lpips_fn(params=params, device="cpu")
+    lp_card = [on_card(r, g) for r, g in zip(renders, gts)]
+    lp_cpu = [on_cpu(r, g) for r, g in zip(renders, gts)]
+    lp_err = max(abs(a - b) / abs(b) for a, b in zip(lp_card, lp_cpu))
+    _require(lp_err <= 1e-4, f"LPIPS card {lp_card} against CPU {lp_cpu}")
+    net = lpips_mod.LPIPS(params).to(dev)
+    pair = [torch.from_numpy(x).to(dev).permute(2, 0, 1)[None] * 2 - 1
+            for x in (renders[0], gts[0])]
+    with torch.no_grad():
+        lpips_ms = best_ms(lambda: net(*pair), iters=5)
+    rep["metrics"] = {"psnr": res["PSNR"], "phase10_psnr": info["test_psnr"],
+                      "ssim": res["SSIM"], "lpips": res["LPIPS"],
+                      "seconds": metrics_s, "lpips_random_card": lp_card,
+                      "lpips_random_cpu": lp_cpu, "lpips_rel_err": lp_err,
+                      "lpips_ms_per_512_pair": lpips_ms}
+
+    # 3. viewer: serve_model on port 0, a client speaking the protocol ------
+    lp, _, _, cfg = load_config(str(coarse / "config.yaml"), str(coarse))
+    scene = Scene(lp, cfg, load_iteration=-1, device=dev)
+    cams = scene.get_test_cameras() + scene.get_train_cameras()[::6]
+    msgs = [_wire_1080(c) for c in cams]                    # 1080p
+    msgs.append(viewer_mod.request_message(np.eye(4), np.eye(3), 0, 0))
+    msgs.append(_wire_1080(cams[1], mod=0.5))
+    keep_alive, n_images = len(cams), len(msgs) - 1
+    draws.clear()
+    srv = viewer_mod.ViewerServer(port=0)
+    failed = []
+
+    def serve():
+        try:
+            viewer_mod.serve_model(str(coarse), max_requests=n_images,
+                                   server=srv)
+        except Exception as e:               # reported by the client side
+            failed.append(repr(e))
+
+    def client():
+        th = threading.Thread(target=serve)
+        th.start()
+        frames, wall_ms = [], []
+        with socket.create_connection(("127.0.0.1", srv.bound_port),
+                                      timeout=120) as sock:
+            for msg in msgs:
+                n = msg["resolution_x"] * msg["resolution_y"] * 3
+                t0 = time.perf_counter()
+                sock.sendall(viewer_mod.frame_message(msg))
+                buf = bytearray()
+                while len(buf) < n + 4:
+                    buf += sock.recv(n + 4 - len(buf))
+                m = int.from_bytes(buf[n:n + 4], "little")
+                verify = b""
+                while len(verify) < m:
+                    verify += sock.recv(m - len(verify))
+                wall_ms.append((time.perf_counter() - t0) * 1e3)
+                _require(verify.decode() == str(coarse), "verify string")
+                frames.append(bytes(buf[:n]))
+        th.join(timeout=120)
+        _require(not failed and not th.is_alive(), f"viewer: {failed}")
+        return frames, wall_ms
+
+    with _Wrapped(viewer_mod, "render", wrap_draw):
+        (frames, wall_ms), viewer_s = counted("viewer", client,
+                                              one_k1_per_render)
+    _require(draws.count(0) == n_images,
+             f"viewer: dropped counts {draws} for {n_images} requests")
+    _require(frames[keep_alive] == b"", "keep-alive answered with an image")
+    st = scene.train_state
+    mlps, state = st.params.mlps, st.anchor_state()
+    busy_ms = []
+    for msg, frame in zip(msgs, frames):
+        cam_d = viewer_mod.parse_request(msg)
+        if cam_d is None:
+            continue
+        cam = viewer_mod.wire_camera(cam_d, dev)
+        mod = cam_d["scaling_modifier"]
+        cap = suggest_instance_cap(count_render_instances(
+            cam, scene.cfg, mlps, state, scaling_modifier=mod), margin=1.5)
+        box = []
+
+        def draw():
+            box.append(render(cam, scene.cfg, mlps, state,
+                              torch.zeros(3, device=dev), instance_cap=cap,
+                              scaling_modifier=mod))
+        busy_ms.append(device_profile(draw)["busy_ms"])
+        want = viewer_mod.quantize(box[-1]["render"]).tobytes()
+        _require(frame == want, "a viewer frame differs from the "
+                 "in-process render of its camera")
+    rep["viewer"] = {
+        "requests": n_images, "size": [1920, 1088], "keep_alive": 1,
+        "renders": len(draws), "seconds": viewer_s,
+        "wall_ms_send_to_last_byte": wall_ms,
+        "wall_ms_p50_1080p": _median(wall_ms[:keep_alive]),
+        "device_busy_ms": busy_ms,
+        "device_busy_ms_p50": _median(busy_ms)}
+
+    # 4. the explicit model at the flagship's widths ------------------------
+    # The neural model gates an anchor's children by the anchor's distance,
+    # the baked one each gaussian by its own (the reference's semantics), so
+    # a child that straddles a LOD level boundary renders in one and not the
+    # other; at the initial zero offsets they coincide, as in the JAX
+    # package's test of the bake (`tests/test_pipeline_e2e.py:114-144`).
+    ecfg = ModelConfig(name="GaussianLoDModel", feat_dim=32, n_offsets=10,
+                       view_dim=0, color_attr="SH1", render_mode="RGB+ED",
+                       voxel_size=0.02, fork=2, aerial_levels=2,
+                       street_levels=4, standard_dist=8.0)
+    pts = random_gaussians(20000, seed=0, extent=0.8,
+                           scale_range=(0.01, 0.04))["means"]
+    estate = init_anchor_state_from_points(ecfg, pts, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    live = (torch.arange(estate.capacity) < estate.n)[:, None]
+    estate = estate._replace(feat=(torch.randn(estate.feat.shape,
+                                               generator=gen) * live).to(dev))
+    emlps = init_mlps(ecfg.feat_dim, ecfg.view_dim, ecfg.appearance_dim,
+                      ecfg.n_offsets, ecfg.color_dim, generator=gen,
+                      device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baked = explicit_mod.bake_explicit(ecfg, emlps, estate)
+    bake_ms = (time.perf_counter() - t0) * 1e3
+    host_state = estate._replace(**{k: v.cpu() for k, v in
+                                    estate._asdict().items()
+                                    if torch.is_tensor(v)})
+    host_mlps = copy.deepcopy(emlps).cpu()
+    got = explicit_mod.decode_explicit(ecfg, emlps, estate)
+    want = explicit_mod.decode_explicit(ecfg, host_mlps, host_state)
+    op_c, op_h = got["opacity"].cpu(), want["opacity"]
+    sure = op_h.abs() > 1e-6
+    _require(torch.equal((op_c > 0)[sure], (op_h > 0)[sure]),
+             "the bake keeps other rows on the card than on the CPU")
+    keep = (op_c > 0) & (op_h > 0)
+    bake_err = max(float((got[k].cpu()[keep] - v[keep]).abs().max())
+                   for k, v in want.items())
+    _require(bake_err <= 1e-5, f"the bake on the card differs from the CPU "
+             f"copy's by {bake_err}")
+    ply = coarse / "explicit_flagship.ply"
+    save_explicit_ply(str(ply), ecfg, baked)
+    arrays, _ = load_explicit_ply(str(ply))
+    est = explicit_mod.explicit_state_from_arrays(arrays, device=dev)
+    ecams = orbit_cameras(4, radius=3.5, height_z=-1.0, width=1920,
+                          height=1088, device=dev)
+    bg = torch.zeros(3, device=dev)
+
+    def explicit_renders():
+        out = []
+        for c in ecams:
+            t0 = time.perf_counter()
+            pkg = explicit_mod.render_explicit(c, ecfg, est, bg)
+            torch.cuda.synchronize()
+            out.append((pkg, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    with torch.no_grad():
+        exp, explicit_s = counted("explicit", explicit_renders,
+                                  lambda out: launches(k1=len(out)))
+        neural = [render(c, ecfg, emlps, estate, bg, add_prefilter=False,
+                         instance_cap=suggest_instance_cap(
+                             count_render_instances(c, ecfg, emlps, estate,
+                                                    add_prefilter=False),
+                             margin=1.15)) for c in ecams]
+    exp_err = []
+    for (pkg, _), nrl in zip(exp, neural):
+        _require(int(pkg["n_dropped"]) == 0 == int(nrl["n_dropped"]),
+                 "explicit: instances dropped")
+        exp_err.append(float((pkg["render"] - nrl["render"]).abs().max()))
+    _require(max(exp_err) <= 2e-3, f"explicit renders differ from the "
+             f"neural ones by {exp_err}")
+    _require(min(float(p["render_alphas"].max()) for p, _ in exp) > 0.5,
+             "the explicit model is not visible")
+    rep["explicit"] = {
+        "anchors": estate.n, "baked_gaussians": int(baked["xyz"].shape[0]),
+        "decoded": estate.n * ecfg.n_offsets, "bake_ms": bake_ms,
+        "bake_err_vs_cpu": bake_err, "render_ms": [t for _, t in exp],
+        "max_abs_err_vs_neural": exp_err, "size": [1920, 1088]}
+
+    # 5. mesh export of the 2DGS model: K3 once per train view -------------
+    timed, fused = {}, []
+
+    def wrap_timed(name):
+        def make(orig):
+            def fn(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(*args, **kw)
+                torch.cuda.synchronize()
+                timed[name] = timed.get(name, 0.0) + (
+                    time.perf_counter() - t0) * 1e3
+                if name == "fuse":
+                    fused.append((args, kw, out))
+                return out
+            return fn
+        return make
+
+    with _Wrapped(export_mod, "render_depths", wrap_timed("render")), \
+            _Wrapped(export_mod, "fuse_tsdf", wrap_timed("fuse")), \
+            _Wrapped(export_mod, "marching_tetrahedra",
+                     wrap_timed("extract")), \
+            _Wrapped(export_mod, "largest_component",
+                     wrap_timed("largest_component")):
+        _, mesh_s = counted("mesh export", lambda: export_mod.main(
+            ["-m", str(surfel), "--resolution", "128"]),
+            lambda _: launches(k3=info["n_train"]))
+    verts, faces = read_mesh_ply(
+        str(surfel / f"mesh_iteration_{info['its_2d']}.ply"))
+    _require(faces.shape[0] > 0 and bool(np.isfinite(verts).all()),
+             f"mesh: {verts.shape[0]} vertices, {faces.shape[0]} faces")
+    (args, kw, (tsdf, weight)), = fused
+    t0 = time.perf_counter()
+    tsdf_h, weight_h = export_mod.fuse_tsdf(*args, **{**kw, "device": "cpu"})
+    fuse_cpu_ms = (time.perf_counter() - t0) * 1e3
+    tsdf_err = float(np.abs(tsdf - tsdf_h).max())
+    _require(tsdf_err <= 1e-9 and np.array_equal(weight, weight_h),
+             f"the card's TSDF differs from the CPU copy's by {tsdf_err}")
+    rep["mesh_export"] = {
+        "views": info["n_train"], "grid": list(tsdf.shape),
+        "observed_voxels": int((weight > 0).sum()),
+        "vertices": int(verts.shape[0]), "faces": int(faces.shape[0]),
+        "seconds": mesh_s, "render_ms": timed["render"],
+        "fuse_ms": timed["fuse"], "fuse_cpu_copy_ms": fuse_cpu_ms,
+        "extract_ms": timed["extract"] + timed["largest_component"],
+        "tsdf_max_abs_err_vs_cpu": tsdf_err}
+    return rep, tuple(phase)
 
 
 def main() -> int:
@@ -1657,10 +2039,19 @@ def main() -> int:
     _require(all(math.isfinite(x) for x in losses_d), f"loss {losses_d}")
     _require(max(dropped_d) == 0, f"instances dropped: {dropped_d}")
 
-    # 10. the train CLI on the flagship512 config ----------------------------
+    # 10. the train CLI on the flagship512 config, and 11. the serving and
+    # export CLIs on the model directories it writes ---------------------
+    t11 = []
+
+    def serve_cli(coarse, surfel, info):
+        t0 = time.perf_counter()
+        out = _serve_cli(coarse, surfel, info, ALL, dev)
+        t11.append(time.perf_counter() - t0)
+        return out
+
     t_cli = time.perf_counter()
-    cli10 = _train_cli(root, ALL, dev)
-    cli10["seconds"] = time.perf_counter() - t_cli
+    cli10, (rep11, launches11) = _train_cli(root, ALL, dev, then=serve_cli)
+    cli10["seconds"] = time.perf_counter() - t_cli - t11[0]
     c10 = cli10["coarse"]
     print(f"train CLI: {c10['iterations']} coarse iterations at "
           f"{c10['iterations_per_s']:.2f} it/s (p50 "
@@ -1670,11 +2061,20 @@ def main() -> int:
           f"{cli10['window']['device_busy_ms_per_iteration']:.3f} ms/it, "
           f"idle {cli10['window']['device_idle_share']:.3f}; "
           f"{cli10['seconds']:.1f} s", flush=True)
+    v11, m11 = rep11["viewer"], rep11["mesh_export"]
+    print(f"serve CLI: render CLI {rep11['render_cli']['view_ms_p50']:.2f} "
+          f"ms/view; viewer 1080p p50 {v11['wall_ms_p50_1080p']:.2f} ms "
+          f"(busy {v11['device_busy_ms_p50']:.3f}); explicit "
+          f"{rep11['explicit']['baked_gaussians']} baked in "
+          f"{rep11['explicit']['bake_ms']:.1f} ms; LPIPS "
+          f"{rep11['metrics']['lpips_ms_per_512_pair']:.3f} ms/pair; TSDF "
+          f"fuse {m11['fuse_ms']:.1f} ms (CPU copy "
+          f"{m11['fuse_cpu_copy_ms']:.1f}); {t11[0]:.1f} s", flush=True)
 
-    # 11. report -------------------------------------------------------------
+    # 12. report -------------------------------------------------------------
     paths = {"serve_3dgs": sv["launches"], "train_3dgs": tr["launches"],
              "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"],
-             "train_cli": cli10["launches"]}
+             "train_cli": cli10["launches"], "serve_cli": launches11}
 
     def launches(i):
         return {p: n[i] for p, n in paths.items()}
@@ -1718,6 +2118,12 @@ def main() -> int:
         "step_busy_ms_1080p_phase6":
             _profile_report(tr["prof"])["device_busy_ms"],
         **{k: v for k, v in cli10.items() if k != "launches"}}))
+    print(json.dumps({
+        "slice": "serve CLI flagship512: render CLI, metrics, viewer, "
+                 "explicit bake, mesh export (cuda)", "card": card,
+        "seconds": t11[0],
+        "launches": dict(zip(("K1", "K2", "K3", "K4"), launches11[:4])),
+        **rep11}))
     print(json.dumps({"slice": "tools T1-T3 (cuda)", "card": card,
                       "seconds": tools_s,
                       "T1_ms": t1_times, "T1_equal_l_sweep": t1_sweep,
@@ -1787,8 +2193,9 @@ def main() -> int:
         "host_us_per_launch": t3_2040[k]["host_us_per_launch"],
         "blocks": 2040, "plain_ms": t3_plain_ms[k],
         "bound_ms": t3_bytes[k] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": (t3_2040["zero_"]["launch_us"] / 1e3
-                       if k == "write" else None),
+        "library_ms": ({"write": t3_2040["zero_"]["launch_us"] / 1e3,
+                        "one_copy": t3_2040["copy_"]["launch_us"] / 1e3}
+                       .get(k)),
         "card": card} for j, k in enumerate(("empty", "write", "one_copy"))]
     print(json.dumps({"kernels": [{
         "name": "raster3d_fwd (K1)", "route": "cuda",

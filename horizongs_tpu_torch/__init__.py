@@ -10,10 +10,12 @@ Layer map (bottom -> top):
   device.py  default device (cuda, or raise) and TF32 switches
   config.py  the YAML config's three namespaces and their defaults
   core/      cameras, rotations, spherical harmonics
-  io/        PLY codec, anchor PLYs, MLP weights, training checkpoints
+  io/        PLY codec, anchor and explicit PLYs, MLP weights, training
+             checkpoints
   data/      dataset readers (Blender, COLMAP, city, UCGS), camera loading,
              the scene, synthetic scenes and the synthetic dataset writer
-  models/    model config, MLP decoders, anchor tables and LOD decode
+  models/    model config, MLP decoders, anchor tables and LOD decode, the
+             explicit (SH-baked) model
   ops/       projection, tile binning, dense oracles, the 3DGS compositors
              K1/K2 (`ops/raster3d.py` + `csrc/raster3d_*.cu`), the 2DGS
              compositors K3/K4 (`ops/raster2d.py` + `csrc/raster2d_*.cu`),
@@ -21,8 +23,11 @@ Layer map (bottom -> top):
   kernels.py nvcc build, load and launch count of the CUDA sources
   render.py  the serving entry point: camera + model -> images
   train/     losses, schedules, Adam, the training step, densification,
-             the trainer and the evaluation
-  cli/       the train entry point and the synthetic dataset writer
+             the trainer, the evaluation and LPIPS
+  utils/     fly-through paths, TSDF fusion and mesh extraction, vis
+  viewer/    the SIBR network-GUI viewer server
+  cli/       train, render, metrics, view, export_mesh, convert and the
+             synthetic dataset writer
   convert.py the JAX package's parameters (as numpy) -> this package
 """
 

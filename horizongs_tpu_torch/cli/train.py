@@ -8,12 +8,15 @@ scene, train (coarse from the point cloud, or fine from the config's
 `--start_checkpoint`, then re-render the test set and write
 results_test.json. The run's directory gets the resolved config.yaml,
 cfg_args and a copy of this package's source under backup/.
+`--viewer_port` serves the model being trained to a viewer client,
+`--profile N` writes a `torch.profiler` trace of N iterations from
+iteration 20 into <model_path>/profile/, and `--detect_anomaly` turns on
+`torch.autograd.set_detect_anomaly` (the reference's `train.py:760`).
 
 Not ported yet, each refused with an error naming its queue of
 ROADMAP.md: the multi-device options (`--mesh`, `--band_cap`,
 `--balanced_bands`, `--uniform_bands`, `--no_balanced_batches`,
-`--checkpoint_format sharded`; queue 3), the in-train viewer
-(`--viewer_port`; queue 2), `--profile` and `--detect_anomaly` (queue 1).
+`--checkpoint_format sharded`; queue 3).
 """
 from __future__ import annotations
 
@@ -26,11 +29,9 @@ import shutil
 # brings them; the flags among them take no value
 _NOT_PORTED = {
     "mesh": 3, "band_cap": 3, "balanced_bands": 3, "uniform_bands": 3,
-    "no_balanced_batches": 3, "viewer_port": 2, "profile": 1,
-    "detect_anomaly": 1,
+    "no_balanced_batches": 3,
 }
-_FLAGS = ("balanced_bands", "uniform_bands", "no_balanced_batches",
-          "detect_anomaly")
+_FLAGS = ("balanced_bands", "uniform_bands", "no_balanced_batches")
 
 
 def main(argv=None):
@@ -60,6 +61,17 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--disable_tb", action="store_true",
                         help="skip tensorboard SummaryWriter creation")
+    parser.add_argument("--viewer_port", type=int, default=None,
+                        help="poll a SIBR remote-GUI client during training "
+                        "(reference network_gui, shipped disabled there)")
+    parser.add_argument("--profile", type=int, default=0, metavar="N",
+                        help="write a torch.profiler trace of N training "
+                        "iterations, from iteration 20, into "
+                        "<model_path>/profile/")
+    parser.add_argument("--detect_anomaly", action="store_true",
+                        help="torch.autograd.set_detect_anomaly: the "
+                        "backward names the forward op behind a NaN (the "
+                        "reference's train.py:760; slow, for debugging)")
     parser.add_argument("--checkpoint_format", default="npz",
                         choices=["npz", "sharded"],
                         help="npz (one file); sharded is not ported yet "
@@ -79,6 +91,7 @@ def main(argv=None):
         raise NotImplementedError(
             "not ported to horizongs_tpu_torch yet: " + ", ".join(refused))
 
+    import torch
     import yaml
 
     from horizongs_tpu_torch.cli.common import get_logger, load_config
@@ -128,7 +141,9 @@ def main(argv=None):
                   seed=args.seed, device=device)
     trainer = Trainer(scene.cfg, op, pp, scene, logger=logger,
                       rasterizer=args.rasterizer, seed=args.seed,
-                      tb_writer=tb_writer)
+                      tb_writer=tb_writer, viewer_port=args.viewer_port,
+                      profile_steps=(20, args.profile) if args.profile
+                      else None)
     iterations = op.iterations
     save_iters = set(args.save_iterations
                      if args.save_iterations is not None else [iterations])
@@ -139,10 +154,14 @@ def main(argv=None):
         first_iter = ckpt_it + 1
         logger.info(f"Resumed from {args.start_checkpoint} "
                     f"at iteration {ckpt_it}")
-    trainer.train(iterations=iterations, save_iterations=save_iters,
-                  checkpoint_iterations=set(args.checkpoint_iterations),
-                  test_iterations=set(args.test_iterations),
-                  first_iter=first_iter)
+    # anomaly mode for the training run only, restored after it
+    with torch.autograd.set_detect_anomaly(args.detect_anomaly):
+        trainer.train(iterations=iterations, save_iterations=save_iters,
+                      checkpoint_iterations=set(args.checkpoint_iterations),
+                      test_iterations=set(args.test_iterations),
+                      first_iter=first_iter)
+    if trainer.viewer is not None:
+        trainer.viewer.close()
     if tb_writer is not None:
         tb_writer.close()   # flush buffered scalars
 
@@ -157,8 +176,8 @@ def main(argv=None):
             add_prefilter=not (int(getattr(pp, "no_prefilter_step", 0)
                                    or 0) > 0))
         results = evaluate_sets(lp.model_path, iterations, renders, gts,
-                                types, lpips_model=lpips_fn_or_none(),
-                                subsets=subsets)
+                                types, lpips_model=lpips_fn_or_none(device),
+                                subsets=subsets, device=device)
         logger.info(json.dumps(results, indent=2))
     return 0
 

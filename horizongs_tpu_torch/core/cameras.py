@@ -81,3 +81,18 @@ def make_camera(R: np.ndarray, t: np.ndarray, fovx: float, fovy: float,
             np.asarray(cam_center, dtype=np.float32)).to(dev),
         uid=uid, resolution_scale=resolution_scale,
     )
+
+
+def camera_from_matrices(ref: Camera, viewmat: np.ndarray,
+                         uid: int = 0) -> Camera:
+    """A novel-view camera with `ref`'s intrinsics and size, on `ref`'s
+    device (fly-through paths, reference `render_utils.py:160-181`):
+    `viewmat` (4, 4) float32 world->camera, its centre from its inverse,
+    no supervision."""
+    viewmat = np.asarray(viewmat, dtype=np.float32)
+    cam_center = np.linalg.inv(viewmat)[:3, 3].astype(np.float32)
+    dev = ref.viewmat.device
+    return ref._replace(viewmat=torch.from_numpy(viewmat).to(dev),
+                        cam_center=torch.from_numpy(cam_center).to(dev),
+                        image=None, alpha_mask=None, invdepth=None,
+                        depth_mask=None, uid=uid)

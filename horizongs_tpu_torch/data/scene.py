@@ -7,9 +7,9 @@ input.ply and cameras.json, and initialises the training state from the
 point cloud (coarse stage, with the optional camera weed-out), from a
 pretrained coarse iteration directory (fine stage: frozen MLPs and the
 rollback base copies, `create_from_pretrained`), or from a saved
-iteration. The explicit (SH-baked) model is not ported yet
-(`models/explicit.py`, ROADMAP queue 2): `explicit=True` and the bake in
-`save` raise.
+iteration; with `explicit=True` a saved iteration loads as the baked
+explicit model (`explicit_state`, no training state). `save` bakes a
+view-independent SH model to point_cloud_explicit.ply beside the anchors.
 """
 from __future__ import annotations
 
@@ -26,8 +26,10 @@ from horizongs_tpu_torch.data.readers import scene_load_callbacks
 from horizongs_tpu_torch.device import DeviceLike, resolve_device
 from horizongs_tpu_torch.io.checkpoints import (
     load_anchor_ply,
+    load_explicit_ply,
     load_mlp_checkpoints,
     save_anchor_ply,
+    save_explicit_ply,
     save_mlp_checkpoints,
     search_max_iteration,
 )
@@ -37,11 +39,12 @@ from horizongs_tpu_torch.models.anchors import (
     weed_out_mask,
 )
 from horizongs_tpu_torch.models.config import ModelConfig
+from horizongs_tpu_torch.models.explicit import (
+    bake_explicit,
+    explicit_state_from_arrays,
+)
 from horizongs_tpu_torch.models.factory import base_copies, new_mlps
 from horizongs_tpu_torch.train.step import TrainState, init_train_state
-
-_EXPLICIT = ("the explicit (SH-baked) model is not ported yet "
-             "(models/explicit.py, ROADMAP queue 2)")
 
 
 class Scene:
@@ -49,8 +52,6 @@ class Scene:
                  explicit: bool = False,
                  weed_ratio: float = 0.0, logger=None, seed: int = 0,
                  device: DeviceLike = None):
-        if explicit:
-            raise NotImplementedError(_EXPLICIT)
         self.lp = lp
         self.cfg = cfg
         self.device = dev = resolve_device(device)
@@ -120,9 +121,17 @@ class Scene:
             if train else np.zeros((0, 4), np.float32)
 
         # ---- model state ----
+        self.train_state = self.explicit_state = None
         if self.loaded_iter:
             it_dir = os.path.join(self.model_path, "point_cloud",
                                   f"iteration_{self.loaded_iter}")
+            if explicit:
+                arrays, info = load_explicit_ply(
+                    os.path.join(it_dir, "point_cloud_explicit.ply"))
+                self.cfg = _fold_obj_info(self.cfg, info)
+                self.explicit_state = explicit_state_from_arrays(
+                    arrays, device=dev)
+                return
             state, info = load_anchor_ply(
                 os.path.join(it_dir, "point_cloud.ply"), self.cfg,
                 device=dev)
@@ -179,16 +188,21 @@ class Scene:
 
     def save(self, iteration: int, train_state: TrainState) -> None:
         """`Scene.save` (`scene/__init__.py:155-164`): anchor PLY and MLP
-        weights. The explicit bake of a view-independent SH model is not
-        ported yet and raises."""
-        if self.cfg.color_attr != "RGB" and self.cfg.view_dim == 0:
-            raise NotImplementedError(_EXPLICIT)
+        weights, and the explicit bake where the colours are SH and
+        view-independent ("Neural Gaussians do not have the SH property"
+        / "are affected by viewpoint" otherwise)."""
         it_dir = os.path.join(self.model_path, "point_cloud",
                               f"iteration_{iteration}")
         os.makedirs(it_dir, exist_ok=True)
+        astate = train_state.anchor_state()
+        mlps = train_state.params.mlps
         save_anchor_ply(os.path.join(it_dir, "point_cloud.ply"), self.cfg,
-                        train_state.anchor_state())
-        save_mlp_checkpoints(it_dir, train_state.params.mlps)
+                        astate)
+        save_mlp_checkpoints(it_dir, mlps)
+        if self.cfg.color_attr != "RGB" and self.cfg.view_dim == 0:
+            save_explicit_ply(
+                os.path.join(it_dir, "point_cloud_explicit.ply"), self.cfg,
+                bake_explicit(self.cfg, mlps, astate))
 
 
 def _fold_obj_info(cfg: ModelConfig, info: dict) -> ModelConfig:

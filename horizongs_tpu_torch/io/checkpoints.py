@@ -12,13 +12,17 @@ reads the other's files.
     .../l2/b (and the appearance table). The port's decoders store their
     weights (in, out), as the JAX package's dense layers do, so nothing is
     transposed.
+  * The explicit PLY (the SH bake, `models/explicit.py`) is the
+    reference's 3DGS schema (`base_model.py:566-697`): f_dc / f_rest
+    channel-major, the raw opacity, linear scales, and the LOD model's
+    level / extra_level columns and obj_info scalars.
   * A training checkpoint is one npz of the whole training state under the
     JAX package's flattened `TrainState` keys (params/..., rotation, level,
     extra_level, n, opt/mu/..., opt/nu/..., opt/t, stats/...) plus
     `__iteration__`; no pickle.
 
-The JAX package's explicit-model PLY (the SH bake) and its orbax sharded
-checkpoints are not ported yet (ROADMAP queues 2 and 3).
+The JAX package's orbax sharded checkpoints are not ported yet (ROADMAP
+queue 3).
 """
 from __future__ import annotations
 
@@ -132,6 +136,74 @@ def load_anchor_ply(path: str, cfg: ModelConfig,
          "level": pad(level), "extra_level": pad(extra), "n": n},
         device=device)
     return state, info
+
+
+# ---------------------------------------------------------------------------
+# explicit PLY
+# ---------------------------------------------------------------------------
+
+def explicit_ply_props(cfg: ModelConfig, arrays: dict) -> Tuple[dict, list]:
+    """Explicit-gaussian arrays (`models.explicit.bake_explicit`) ->
+    (ordered PLY props, obj_info) in the reference's schema."""
+    xyz = arrays["xyz"]
+    n = xyz.shape[0]
+    feats = arrays["features"]                     # (n, K, 3)
+    f_dc = feats[:, 0:1, :].transpose(0, 2, 1).reshape(n, 3)
+    f_rest = feats[:, 1:, :].transpose(0, 2, 1).reshape(n, -1)
+    props = {"x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2]}
+    obj_info = []
+    if cfg.is_lod:
+        props["level"] = arrays["level"].astype(np.float32)
+        props["extra_level"] = arrays["extra_level"]
+        obj_info = [f"standard_dist {cfg.standard_dist:.6f}",
+                    f"aerial_levels {cfg.aerial_levels:.6f}",
+                    f"street_levels {cfg.street_levels:.6f}"]
+    for i in range(3):
+        props[f"f_dc_{i}"] = f_dc[:, i]
+    for i in range(f_rest.shape[1]):
+        props[f"f_rest_{i}"] = f_rest[:, i]
+    props["opacity"] = arrays["opacity"]
+    for i in range(3):
+        props[f"scale_{i}"] = arrays["scaling"][:, i]
+    for i in range(4):
+        props[f"rot_{i}"] = arrays["rotation"][:, i]
+    return props, obj_info
+
+
+def save_explicit_ply(path: str, cfg: ModelConfig, arrays: dict) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    props, obj_info = explicit_ply_props(cfg, arrays)
+    write_ply(path, props, obj_info)
+
+
+def load_explicit_ply(path: str) -> Tuple[dict, dict]:
+    """Returns (arrays, obj_info dict); level and extra_level are zeros
+    when the file has none (a flat model's)."""
+    props, info_lines = read_ply(path)
+    info = {line.split()[0]: float(line.split()[1]) for line in info_lines}
+    xyz = np.stack([props["x"], props["y"], props["z"]],
+                   axis=1).astype(np.float32)
+    n = xyz.shape[0]
+    f_dc = np.stack([props["f_dc_0"], props["f_dc_1"], props["f_dc_2"]],
+                    axis=1).astype(np.float32)[:, None, :]    # (n, 1, 3)
+    rest = _sorted_cols(props, "f_rest_")
+    # stored channel-major: (n, 3, K_rest) -> (n, K_rest, 3)
+    rest = rest.reshape(n, 3, rest.shape[1] // 3).transpose(0, 2, 1)
+    arrays = {
+        "xyz": xyz,
+        "features": np.concatenate([f_dc, rest], axis=1).astype(np.float32),
+        "opacity": np.asarray(props["opacity"]).astype(np.float32),
+        "scaling": _sorted_cols(props, "scale_"),
+        "rotation": _sorted_cols(props, "rot_"),
+    }
+    if "level" in props:
+        arrays["level"] = np.asarray(props["level"]).astype(np.int32)
+        arrays["extra_level"] = np.asarray(
+            props["extra_level"]).astype(np.float32)
+    else:
+        arrays["level"] = np.zeros(n, np.int32)
+        arrays["extra_level"] = np.zeros(n, np.float32)
+    return arrays, info
 
 
 # ---------------------------------------------------------------------------

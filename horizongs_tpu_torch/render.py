@@ -71,16 +71,20 @@ def prefilter_anchors(cfg: ModelConfig, state: AnchorState, cam: Camera,
 
 
 def decode_view(cam: Camera, cfg: ModelConfig, mlps: MlpDecoders,
-                state: AnchorState, add_prefilter: bool = True
-                ) -> DecodedGaussians:
-    """The gaussians one view sees: LOD mask, prefilter, decode."""
+                state: AnchorState, add_prefilter: bool = True,
+                scaling_modifier: float = 1.0) -> DecodedGaussians:
+    """The gaussians one view sees: LOD mask, prefilter, decode, the
+    scales times `scaling_modifier`."""
     anchor_mask, smooth = anchor_lod_mask(cfg, state, cam.cam_center,
                                           cam.resolution_scale)
     if add_prefilter:
         anchor_mask = prefilter_anchors(cfg, state, cam, anchor_mask)
-    return decode_neural_gaussians(cfg, mlps, state, cam.cam_center,
-                                   anchor_mask, smooth,
-                                   appearance_id=int(cam.uid))
+    dec = decode_neural_gaussians(cfg, mlps, state, cam.cam_center,
+                                  anchor_mask, smooth,
+                                  appearance_id=int(cam.uid))
+    if scaling_modifier != 1.0:
+        dec = dec._replace(scales=dec.scales * scaling_modifier)
+    return dec
 
 
 def render(cam: Camera,
@@ -92,18 +96,21 @@ def render(cam: Camera,
            rasterizer: str = "cuda",
            instance_cap: Optional[int] = None,
            means2d_probe: Optional[torch.Tensor] = None,
-           active_sh_degree: Optional[int] = None) -> dict:
+           active_sh_degree: Optional[int] = None,
+           scaling_modifier: float = 1.0) -> dict:
     """`instance_cap`: the (gaussian, tile) instance capacity of the cuda
     path (default max(4N, G)); calibrate it with `count_render_instances`
     and `ops.raster_cuda.suggest_instance_cap`. Overflow is counted, never
     silent (`pkg["n_dropped"]`). `means2d_probe`: see the module
     docstring. `active_sh_degree`: for SH colours, the degree evaluated
     (the trainer raises it every 1000 steps); None evaluates the
-    configuration's maximum. RGB colours ignore it."""
+    configuration's maximum. RGB colours ignore it. `scaling_modifier`
+    multiplies the decoded scales before rasterization (the viewer's
+    splat-size slider)."""
     _check_gs_attr(cfg)
     if rasterizer not in ("cuda", "dense"):
         raise ValueError(f"Unknown rasterizer: {rasterizer}")
-    dec = decode_view(cam, cfg, mlps, state, add_prefilter)
+    dec = decode_view(cam, cfg, mlps, state, add_prefilter, scaling_modifier)
     colors = dec.colors
     if cfg.color_attr != "RGB":
         colors = colors.reshape(-1, cfg.color_dim // 3, 3)
@@ -149,15 +156,18 @@ def render(cam: Camera,
 
 def count_render_instances(cam: Camera, cfg: ModelConfig, mlps: MlpDecoders,
                            state: AnchorState,
-                           add_prefilter: bool = True) -> int:
+                           add_prefilter: bool = True,
+                           scaling_modifier: float = 1.0) -> int:
     """Tile-instance count the cuda path enumerates for this view with the
     current model: LOD mask -> decode -> projection + lossless cull + AABB
     spans. Take the max over a few cameras to calibrate
     `render(instance_cap=...)` via `suggest_instance_cap`. Colours do not
-    enter the count, so it takes no SH degree."""
+    enter the count, so it takes no SH degree; the scales do, so it takes
+    `render`'s `scaling_modifier`."""
     _check_gs_attr(cfg)
     with torch.no_grad():
-        dec = decode_view(cam, cfg, mlps, state, add_prefilter)
+        dec = decode_view(cam, cfg, mlps, state, add_prefilter,
+                          scaling_modifier)
         n = _COUNT[cfg.gs_attr](dec.means, dec.quats, dec.scales,
                                 dec.opacities, cam.viewmat, cam.K,
                                 cam.width, cam.height)

@@ -6,8 +6,10 @@ The port of `tools/profile_grid_overhead.py`, which timed near-empty
 Pallas grids to find the TPU's fixed cost per grid step. Here the kernels
 of `ops/grid_overhead.py` (empty, write, one_copy: one 256-thread block
 per tile, as K1 launches them) run over 255, 1020, 2040 (K1's grid at
-1080p) and 4080 (K3's) blocks, with `Tensor.zero_()` on the same buffer
-beside write. A launch through ctypes costs the host microseconds, as much
+1080p) and 4080 (K3's) blocks, with the one PyTorch call that computes
+each kernel's function beside it: `Tensor.zero_()` beside write, and
+`copy_` of `inst[0, 0]` expanded over the output beside one_copy. A
+launch through ctypes costs the host microseconds, as much
 as these kernels take on the device, so CUDA events around back-to-back
 launches would time the host, and the card would idle between launches.
 So each kernel is launched 50 times from a CUDA graph, back to back, each
@@ -61,13 +63,17 @@ def graph_times(fn) -> dict:
 
 
 def overhead_table(device) -> list:
-    """Per grid of `go.GRIDS`: the device us of empty, write, one_copy and
-    zero_(), each kernel's own ("device_us", and per block) and from one
+    """Per grid of `go.GRIDS`: the device us of empty, write, one_copy,
+    zero_() and copy_ (one_copy's function: every slab filled with
+    inst[0, 0]), each kernel's own ("device_us", and per block) and from one
     launch to the next ("launch_us") (`graph_times`, each writing launch
     on the next buffer of a `ring_size` ring), and the host's us per
     launch of each from the stream."""
     from horizongs_tpu_torch.tools.timing import host_us_per_call
     inst = torch.zeros((go.ROWS, 4096), dtype=torch.float32, device=device)
+
+    def fill(out):
+        return out.copy_(inst[0, 0].expand_as(out))
     rows = []
     for n in go.GRIDS:
         ring = [torch.empty((n, go.ROWS, go.P), dtype=torch.float32,
@@ -77,7 +83,8 @@ def overhead_table(device) -> list:
         fns = {"empty": lambda: go.empty(n, device),
                "write": lambda: go.write(nxt()),
                "one_copy": lambda: go.one_copy(inst, nxt()),
-               "zero_": lambda: nxt().zero_()}
+               "zero_": lambda: nxt().zero_(),
+               "copy_": lambda: fill(nxt())}
         row = {"blocks": n, "ring": len(ring)}
         for name, fn in fns.items():
             t = graph_times(fn)
@@ -99,7 +106,7 @@ def main(argv=None) -> int:
     rows = overhead_table(dev)
     for r in rows:
         cells = []
-        for k in ("empty", "write", "one_copy", "zero_"):
+        for k in ("empty", "write", "one_copy", "zero_", "copy_"):
             c = r[k]
             cells.append(f"{k} {c['device_us']:8.2f} us "
                          f"({c['device_us_per_block']:.4f}/block, launch "

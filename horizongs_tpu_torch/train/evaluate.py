@@ -1,12 +1,12 @@
 """Render sets and evaluation: the reference's post-training pipeline.
 
 The JAX package's `train/evaluate.py` (`render_sets` / `evaluate`,
-`train.py:385-669`): re-render a camera set through the cuda path, write
-renders / ground truth / error maps, count the visible gaussians per view,
-and compute PSNR and SSIM split by aerial/street (and UCGS subset) into
-results_<tag>.json and per_view_<tag>.json. LPIPS is not ported yet
-(ROADMAP queue 2): `lpips_fn_or_none` warns and returns None, and the
-results report LPIPS as null.
+`train.py:385-669`): re-render a camera set through the cuda path (the
+neural model, or with `explicit=True` the baked one), write renders /
+ground truth / error maps, count the visible gaussians per view, and
+compute PSNR, SSIM and LPIPS split by aerial/street (and UCGS subset) into
+results_<tag>.json and per_view_<tag>.json. LPIPS needs the VGG weights
+(`train/lpips.py`); without them the results report it as null.
 """
 from __future__ import annotations
 
@@ -19,9 +19,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from horizongs_tpu_torch.device import DeviceLike
+from horizongs_tpu_torch.models.explicit import (
+    count_explicit_instances,
+    render_explicit,
+)
 from horizongs_tpu_torch.ops.raster_cuda import suggest_instance_cap
 from horizongs_tpu_torch.render import count_render_instances, render
 from horizongs_tpu_torch.train.losses import psnr, ssim
+from horizongs_tpu_torch.train.lpips import lpips_fn, weights_path
 
 
 def save_image(path: str, img, alpha=None) -> None:
@@ -40,13 +46,18 @@ def save_image(path: str, img, alpha=None) -> None:
         Image.fromarray(arr).save(path)
 
 
-def lpips_fn_or_none():
-    """The LPIPS(vgg) scorer; None until its port (ROADMAP queue 2), with
-    the JAX package's warning."""
-    print("WARNING: LPIPS unavailable (the LPIPS port is ROADMAP queue 2) "
-          "— results.json will report LPIPS: null.", file=sys.stderr,
-          flush=True)
-    return None
+def lpips_fn_or_none(device: DeviceLike = None):
+    """The LPIPS(vgg) scorer on `device` (the card by default) when its
+    weights are on the machine; else a warning and None. Unlike the JAX
+    package this does not fall back to the `lpips` pip package, which
+    downloads its weights."""
+    fn = lpips_fn(device=device)
+    if fn is None:
+        print(f"WARNING: LPIPS unavailable (no VGG weights at "
+              f"{weights_path()}; convert them with "
+              f"tools/convert_lpips_weights.py) — results.json will report "
+              f"LPIPS: null.", file=sys.stderr, flush=True)
+    return fn
 
 
 def _sync(dev: torch.device) -> None:
@@ -57,18 +68,20 @@ def _sync(dev: torch.device) -> None:
 @torch.no_grad()
 def render_set(out_dir: str, name: str, iteration: int, cameras, cfg,
                scene, state, rasterizer: str = "cuda",
-               save_images: bool = True,
+               save_images: bool = True, explicit: bool = False,
                add_prefilter: Optional[bool] = None):
     """Render one camera set; returns (renders, gts, per-view visible
     counts, seconds per view, image types, evaluation subset tags), the
-    images as numpy arrays.
+    images as numpy arrays. `state` is a `TrainState`, or with
+    `explicit=True` an `ExplicitState` (the baked model, rendered at the
+    configuration's SH degree; a view counts its LOD-gated gaussians).
 
     The instance capacity is calibrated per resolution (the first view's
     count x 1.5); a view that overflows it is recalibrated from itself and
     rendered again, so nothing is ever dropped. `add_prefilter=None`
     defaults to the scene's flag; the train CLI passes
     `not (no_prefilter_step > 0)`, as the reference's `render_sets`
-    (`train.py:478-484`)."""
+    (`train.py:478-484`). The explicit model has no prefilter."""
     base = os.path.join(out_dir, name, f"ours_{iteration}")
     render_dir = os.path.join(base, "renders")
     gt_dir = os.path.join(base, "gt")
@@ -78,17 +91,32 @@ def render_set(out_dir: str, name: str, iteration: int, cameras, cfg,
             os.makedirs(d, exist_ok=True)
     if add_prefilter is None:
         add_prefilter = getattr(scene, "add_prefilter", True)
-    mlps, astate = state.params.mlps, state.anchor_state()
-    dev = astate.anchor.device
+    if explicit:
+        dev = state.xyz.device
+
+        def count(cam):
+            return count_explicit_instances(cam, cfg, state)
+
+        def draw(cam, cap):
+            return render_explicit(cam, cfg, state, scene.background,
+                                   rasterizer=rasterizer, instance_cap=cap)
+        visible = "gs_mask"
+    else:
+        mlps, astate = state.params.mlps, state.anchor_state()
+        dev = astate.anchor.device
+
+        def count(cam):
+            return count_render_instances(cam, cfg, mlps, astate,
+                                          add_prefilter=add_prefilter)
+
+        def draw(cam, cap):
+            return render(cam, cfg, mlps, astate, scene.background,
+                          add_prefilter=add_prefilter, rasterizer=rasterizer,
+                          instance_cap=cap)
+        visible = "selection_mask"
 
     def calibrate(cam):
-        return suggest_instance_cap(count_render_instances(
-            cam, cfg, mlps, astate, add_prefilter=add_prefilter), margin=1.5)
-
-    def draw(cam, cap):
-        return render(cam, cfg, mlps, astate, scene.background,
-                      add_prefilter=add_prefilter, rasterizer=rasterizer,
-                      instance_cap=cap)
+        return suggest_instance_cap(count(cam), margin=1.5)
 
     renders, gts, counts, times, types, subsets = [], [], [], [], [], []
     caps = {}
@@ -106,7 +134,7 @@ def render_set(out_dir: str, name: str, iteration: int, cameras, cfg,
         img = pkg["render"]
         _sync(dev)
         times.append(time.perf_counter() - t0)
-        counts.append(int(pkg["selection_mask"].sum()))
+        counts.append(int(pkg[visible].sum()))
         gt = cam.image if cam.image is not None else torch.zeros_like(img)
         mask = cam.alpha_mask
         if mask is not None:
@@ -131,11 +159,13 @@ def render_set(out_dir: str, name: str, iteration: int, cameras, cfg,
 
 
 def evaluate_sets(out_dir: str, iteration: int, renders, gts, types,
-                  lpips_model=None, tag: str = "test", subsets=None):
+                  lpips_model=None, tag: str = "test", subsets=None,
+                  device: DeviceLike = "cpu"):
     """PSNR/SSIM(/LPIPS) per aerial/street split -> results_<tag>.json
-    (`metrics.py:52-148`, `train.py:520-669`). Non-empty `subsets` tags
-    (UCGS's held-out / +0.1m / +0.1m+5° splits, `train.py:542-591`) each
-    form a group of their own beside aerial/street."""
+    (`metrics.py:52-148`, `train.py:520-669`), PSNR and SSIM computed on
+    `device`. Non-empty `subsets` tags (UCGS's held-out / +0.1m /
+    +0.1m+5° splits, `train.py:542-591`) each form a group of their own
+    beside aerial/street."""
     per_view = {"PSNR": {}, "SSIM": {}, "LPIPS": {}}
     groups = {"all": [], "aerial": [], "street": []}
     if subsets is None:
@@ -146,7 +176,8 @@ def evaluate_sets(out_dir: str, iteration: int, renders, gts, types,
     with torch.no_grad():
         for i, (r, g, t, sub) in enumerate(zip(renders, gts, types,
                                                subsets)):
-            rt, gt = torch.from_numpy(r), torch.from_numpy(g)
+            rt = torch.from_numpy(r).to(device)
+            gt = torch.from_numpy(g).to(device)
             p = float(psnr(rt, gt))
             s = float(ssim(rt, gt))
             lp = None

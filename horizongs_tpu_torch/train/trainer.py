@@ -17,6 +17,11 @@ reference trainer, `train.py:83-285`):
   * the frustum prefilter switched off for the last `no_prefilter_step`
     iterations
   * periodic saves, checkpoints, milestone reports and vis dumps
+  * the in-train viewer poll (`viewer_port`): one non-blocking accept per
+    iteration while no client is connected, else one request answered
+    (`train.py:113-127`)
+  * a `torch.profiler` trace of `profile_steps` = (first, n) iterations
+    into <model_path>/profile/trace.json
 
 Cameras are grouped by resolution; each (H, W, capacity, active SH degree,
 prefilter) combination builds one step with a calibrated instance
@@ -25,8 +30,7 @@ capacity. An overflow is counted and widens that resolution's margin
 and the dropped count in one host sync.
 
 Not ported yet: the multi-device path (the mesh, band exchange, cost-
-balanced batches and sharded checkpoints; ROADMAP queue 3) and the in-train
-viewer (queue 2).
+balanced batches and sharded checkpoints; ROADMAP queue 3).
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import os
 import random
 import time
 from collections import defaultdict
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +57,7 @@ from horizongs_tpu_torch.train.densify import (
 )
 from horizongs_tpu_torch.train.losses import l1_loss, psnr
 from horizongs_tpu_torch.train.step import build_train_step, camera_tensors
+from horizongs_tpu_torch.viewer.server import ViewerServer, render_request
 
 # densify repack block: capacities grow in multiples of this
 CAPACITY_BLOCK = 4096
@@ -66,7 +71,9 @@ class Trainer:
     MARGIN_CEIL = 8 * 1.25
 
     def __init__(self, cfg: ModelConfig, op, pp, scene, logger=None,
-                 rasterizer: str = "cuda", seed: int = 0, tb_writer=None):
+                 rasterizer: str = "cuda", seed: int = 0, tb_writer=None,
+                 viewer_port: Optional[int] = None,
+                 profile_steps: Optional[Tuple[int, int]] = None):
         self.cfg = cfg
         self.op = op
         self.pp = pp
@@ -92,6 +99,14 @@ class Trainer:
         # reports and the overflows
         self.records = {"iteration_ms": [], "step_ms": [], "densify": [],
                         "overflows": []}
+        # (first iteration, iterations) of a torch.profiler trace
+        self.profile_steps = profile_steps
+        self._profiler = None
+        self.viewer = None
+        self._viewer_caps = {}
+        if viewer_port is not None:
+            self.viewer = ViewerServer(port=viewer_port)
+            self.log(f"viewer listening on :{self.viewer.bound_port}")
 
     def restore(self, checkpoint_path: str) -> int:
         """Resume from a training checkpoint (npz) of either package, at
@@ -197,6 +212,43 @@ class Trainer:
                       active_sh_degree=self.active_sh_degree,
                       rasterizer=self.rasterizer)
 
+    def _viewer_render(self, cam_d: dict) -> torch.Tensor:
+        """Render callback of the in-train viewer poll: the current model
+        at the trainer's prefilter flag and SH degree, with the request's
+        scaling modifier, its capacity calibrated per resolution."""
+        st = self.state
+        return render_request(cam_d, self.cfg, st.params.mlps,
+                              st.anchor_state(), self.scene.background,
+                              self._viewer_caps, rasterizer=self.rasterizer,
+                              add_prefilter=self.add_prefilter,
+                              active_sh_degree=self.active_sh_degree)
+
+    def _profile(self, it: int) -> None:
+        """Start the trace at its first iteration, stop and write it after
+        its last (the JAX trainer's `train/trainer.py:638-648`)."""
+        p0, pn = self.profile_steps
+        if it == p0 and self._profiler is None:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.scene.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.log("profiler trace start -> "
+                     f"{os.path.join(self.scene.model_path, 'profile')}")
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+        elif it >= p0 + pn and self._profiler is not None:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if self.scene.device.type == "cuda":
+            torch.cuda.synchronize(self.scene.device)
+        self._profiler.stop()
+        out = os.path.join(self.scene.model_path, "profile")
+        os.makedirs(out, exist_ok=True)
+        self._profiler.export_chrome_trace(os.path.join(out, "trace.json"))
+        self._profiler = None
+        self.log("profiler trace stopped")
+
     @torch.no_grad()
     def _dump_vis(self, cam, it: int) -> None:
         """Side-by-side gt | render (| depth | normals) grid."""
@@ -267,6 +319,10 @@ class Trainer:
 
         for it in range(first_iter, iterations + 1):
             t_it = time.perf_counter()
+            if self.viewer is not None:
+                self.viewer.poll(self._viewer_render, self.scene.model_path)
+            if self.profile_steps is not None:
+                self._profile(it)
             # drop the frustum prefilter for the last no_prefilter_step
             # iterations (`train.py:280-281`)
             if (self.add_prefilter and n_noprefilter > 0
@@ -349,6 +405,8 @@ class Trainer:
                     self.state, it)
             self.records["iteration_ms"].append(
                 (time.perf_counter() - t_it) * 1e3)
+        if self._profiler is not None:      # the run ended inside the trace
+            self._stop_profile()
         return history
 
     def _densify(self, it: int) -> None:

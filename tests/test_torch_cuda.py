@@ -734,3 +734,69 @@ def test_trainer_on_card(card, tmp_path):
     for name, ts in st.params.groups().items():
         for a, b in zip(ts, back.params.groups()[name]):
             assert torch.equal(a.detach(), b.detach()), name
+
+
+@pytest.mark.cuda
+def test_lpips_on_card_matches_cpu(card):
+    """LPIPS with `init_random_weights(0)` on two 512x512 pairs: the card's
+    scores equal the CPU's within rtol 1e-4 (TF32 off)."""
+    from horizongs_tpu_torch.train.lpips import init_random_weights, lpips_fn
+    params = init_random_weights(0)
+    rng = np.random.default_rng(8)
+    a = rng.uniform(0, 1, (2, 512, 512, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    on_card = lpips_fn(params=params, device=card)
+    on_cpu = lpips_fn(params=params, device="cpu")
+    for i in range(2):
+        np.testing.assert_allclose(on_card(a[i], b[i]), on_cpu(a[i], b[i]),
+                                   rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_explicit_bake_on_card_matches_cpu(card):
+    """The SH1, view-independent flagship-width model baked on the card
+    and on a CPU copy: the same rows wherever |opacity| > 1e-6, the arrays
+    within 1e-5; the explicit render through K1 within 2e-3 of the neural
+    render of the same view."""
+    from horizongs_tpu_torch.models.anchors import (
+        init_anchor_state_from_points)
+    from horizongs_tpu_torch.models.config import ModelConfig
+    from horizongs_tpu_torch.models.explicit import (
+        decode_explicit, explicit_state_from_arrays, render_explicit)
+    from horizongs_tpu_torch.models.mlp import init_mlps
+    cfg = ModelConfig(name="GaussianLoDModel", feat_dim=32, n_offsets=10,
+                      view_dim=0, color_attr="SH1", render_mode="RGB+ED",
+                      voxel_size=0.1, fork=2, aerial_levels=2,
+                      street_levels=4, standard_dist=8.0)
+    pts = random_gaussians(3000, seed=0, extent=0.8)["means"]
+    states, mlps = {}, {}
+    for dev in (card, "cpu"):
+        st = init_anchor_state_from_points(cfg, pts, device=dev)
+        gen = torch.Generator().manual_seed(0)
+        live = (torch.arange(st.capacity) < st.n)[:, None]
+        states[str(dev)] = st._replace(
+            feat=(torch.randn(st.feat.shape, generator=gen) * live).to(dev))
+        mlps[str(dev)] = init_mlps(cfg.feat_dim, cfg.view_dim,
+                                   cfg.appearance_dim, cfg.n_offsets,
+                                   cfg.color_dim, generator=gen, device=dev)
+    got = decode_explicit(cfg, mlps[str(card)], states[str(card)])
+    want = decode_explicit(cfg, mlps["cpu"], states["cpu"])
+    op_c, op_h = got["opacity"].cpu(), want["opacity"]
+    sure = op_h.abs() > 1e-6
+    assert torch.equal((op_c > 0)[sure], (op_h > 0)[sure])
+    keep = (op_c > 0) & (op_h > 0)
+    assert int(keep.sum()) > 1000
+    for k, v in want.items():
+        torch.testing.assert_close(got[k].cpu()[keep], v[keep], atol=1e-5,
+                                   rtol=0, msg=k)
+    baked = {k: v[op_c > 0].cpu().numpy() for k, v in got.items()}
+    est = explicit_state_from_arrays(baked, device=card)
+    cam = lookat_camera(width=256, height=256, eye=(0, 0, -4), device=card)
+    with torch.no_grad():
+        exp = render_explicit(cam, cfg, est, torch.zeros(3, device=card))
+        neural = render(cam, cfg, mlps[str(card)], states[str(card)],
+                        torch.zeros(3, device=card), add_prefilter=False)
+    assert int(exp["n_dropped"]) == int(neural["n_dropped"]) == 0
+    assert float(exp["render_alphas"].max()) > 0.5
+    torch.testing.assert_close(exp["render"], neural["render"], atol=2e-3,
+                               rtol=0)

@@ -302,8 +302,12 @@ def test_scene_coarse_matches(blender, tmp_path):
                     j.get_train_cameras() + j.get_test_cameras()):
         _assert_cameras_equal(a, b)
     assert t.camera_bytes() == 8 * H * W * 4 * 4
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        Scene(t.lp, ModelConfig(**LOD), explicit=True, device="cpu")
+    # `explicit` selects the baked model of a loaded iteration only; with
+    # none to load, the scene initialises its training state as the JAX
+    # package's does (`test_torch_explicit.py` loads a bake)
+    e = Scene(t.lp, ModelConfig(**LOD), explicit=True, device="cpu")
+    assert e.explicit_state is None
+    _assert_states_equal(e.train_state, j.train_state)
 
 
 def test_scene_fine_and_loaded_match(blender, tmp_path):
