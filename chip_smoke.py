@@ -118,14 +118,37 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                2DGS model at 128^3 (K3 once per train view, a non-empty
                finite mesh, the card's float64 TSDF equal to the CPU
                copy's within 1e-9); timed
- 12. report    per-view and per-step timings, the layer breakdowns, the
-               densify epoch, the train CLI, the serve CLI, the tools'
-               tables, the kernels line, and last the device line
+ 12. chunks    on phase 10's dataset, before it goes, in a temporary
+               working directory: `cli.partition` of
+               configs/synthetic/chunks512.yaml (2x1 chunks, LOD estimated;
+               no kernel); `train_chunks` coarse (300 iterations) then fine
+               (150) for each chunk in this process through the generated
+               configs, unedited, each job with the counts set to 0 just
+               before it and read after: K1 and K2 once per iteration plus
+               K1 once per evaluation render, nothing else, losses finite,
+               overflows recalibrated, nothing dropped, at least 2 densify
+               epochs coarse and 1 fine, the fine stage's MLPs the coarse
+               model's bit for bit and its coarse rows the base copies
+               after every roll-back, an explicit PLY per job; `cli.merge`
+               with the evaluation: K1 once per test view (plus
+               recalibrations), the merged rows recounted on the card from
+               the chunks' PLYs, the merged arrays bit for bit the cropped
+               rows in chunk order, every merged gaussian in the true
+               bounds, the chunks' obj_info, PSNR and SSIM finite; a
+               256x256 view of the merged model through K1 against the
+               dense oracle (2e-4); timed (partition ms, per job scene
+               load, it/s, iteration p50/p90, densify epochs; merge pass 1
+               and pass 2 ms)
+ 13. report    per-view and per-step timings, the layer breakdowns, the
+               densify epoch, the train CLI, the serve CLI, the chunks,
+               the tools' tables, the kernels line, and last the device
+               line
 
 Prints nothing after a failure and exits non-zero without a card or
 without the package beside it.
 """
 import collections
+import dataclasses
 import json
 import math
 import subprocess
@@ -814,6 +837,32 @@ def _pct(xs, q):
     return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
 
 
+def _checked_densify(orig, base_of, epochs, dev):
+    """`run_densify` that, in the fine stage, records after every epoch
+    whether the coarse-level rows equal the base copies `base_of()` (rolled
+    back before the epoch), their gaussian scales under the epoch's clamp,
+    into `epochs`."""
+    import torch
+
+    def run_densify(cfg, op, st, it, **kw):
+        out = orig(cfg, op, st, it, **kw)
+        if kw.get("stage") == "fine":
+            base = base_of()
+            rows = torch.nonzero(out.level[:out.n]
+                                 < cfg.aerial_levels).squeeze(1)
+            a = out.anchor_state()
+            ok = rows.numel() == base["anchor"].shape[0]
+            for k in ("anchor", "offset", "feat", "rotation", "scaling_log"):
+                want = torch.from_numpy(base[k]).to(dev)
+                if k == "scaling_log":
+                    want[:, 3:] = want[:, 3:].clamp_max(0.05)
+                ok = ok and torch.equal(getattr(a, k)[rows].detach(), want)
+            epochs.append({"iteration": it, "coarse_rows": rows.numel(),
+                           "equal_to_base": ok})
+        return out
+    return run_densify
+
+
 def _train_cli(root, kernels, dev, then, n_train=24, n_test=4, size=512,
                n_gauss=12000, coarse_its=600, window=20, resume_its=20,
                fine_its=250, its_2d=60):
@@ -827,7 +876,8 @@ def _train_cli(root, kernels, dev, then, n_train=24, n_test=4, size=512,
     after: K1 and K2 once per step of a 3DGS run (K3 and K4 for 2DGS) plus
     K1 once per evaluation render (re-renders after a counted overflow
     included), nothing else. Then `then(coarse_dir, surfel_dir, report)`
-    runs on the model directories (phase 11) before the directory goes.
+    runs on the model directories and the dataset (phases 11 and 12)
+    before the directory goes.
     Returns (the phase's report, `then`'s result)."""
     import shutil
     import tempfile
@@ -882,28 +932,8 @@ def _train_cli(root, kernels, dev, then, n_train=24, n_test=4, size=512,
                            "camera_bytes": self.camera_bytes()})
 
     def wrap_densify(orig):
-        # fine stage: after every epoch, the coarse-level rows are the
-        # base copies (rolled back before the epoch), their gaussian
-        # scales under the epoch's clamp
-        def run_densify(cfg, op, st, it, **kw):
-            out = orig(cfg, op, st, it, **kw)
-            if kw.get("stage") == "fine":
-                base = scenes[-1]["scene"].base
-                rows = torch.nonzero(out.level[:out.n]
-                                     < cfg.aerial_levels).squeeze(1)
-                a = out.anchor_state()
-                ok = rows.numel() == base["anchor"].shape[0]
-                for k in ("anchor", "offset", "feat", "rotation",
-                          "scaling_log"):
-                    want = torch.from_numpy(base[k]).to(dev)
-                    if k == "scaling_log":
-                        want[:, 3:] = want[:, 3:].clamp_max(0.05)
-                    ok = ok and torch.equal(
-                        getattr(a, k)[rows].detach(), want)
-                fine_epochs.append({"iteration": it, "coarse_rows":
-                                    rows.numel(), "equal_to_base": ok})
-            return out
-        return run_densify
+        return _checked_densify(orig, lambda: scenes[-1]["scene"].base,
+                                fine_epochs, dev)
 
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     try:
@@ -1064,8 +1094,9 @@ def _train_cli(root, kernels, dev, then, n_train=24, n_test=4, size=512,
             losses_ok("2DGS", run_2["hist"])
         after = then(out, work / "surfel",
                      {"coarse_its": coarse_its, "its_2d": its_2d,
-                      "test_psnr": res["PSNR"], "n_train": n_train,
-                      "n_test": n_test, "size": size})
+                      "test_psnr": res["PSNR"],
+                      "fine_test_psnr": res_f["PSNR"], "n_train": n_train,
+                      "n_test": n_test, "size": size, "data": data})
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1470,6 +1501,367 @@ def _serve_cli(coarse, surfel, info, kernels, dev):
         "fuse_ms": timed["fuse"], "fuse_cpu_copy_ms": fuse_cpu_ms,
         "extract_ms": timed["extract"] + timed["largest_component"],
         "tsdf_max_abs_err_vs_cpu": tsdf_err}
+    return rep, tuple(phase)
+
+
+# keys of chunks512.yaml's data_params that only the partition reads
+_PARTITION_KEYS = ("n_width", "n_height", "overlap_area", "visible_rate",
+                   "xyz_plane")
+
+
+def _chunks(root, info, kernels, dev, coarse_its=300, fine_its=150):
+    """Phase 12: the large-scene pipeline on phase 10's flagship512 dataset
+    (`info["data"]`) in a temporary working directory, where the chunk
+    configs' relative outputs/... paths resolve: `cli.partition` of
+    configs/synthetic/chunks512.yaml, `train_chunks` coarse then fine for
+    each chunk in this process through the generated configs, unedited,
+    and `cli.merge` with the evaluation of the merged model on the 4 test
+    views; then one 256x256 view of the merged model through K1 against
+    the dense oracle. Each job and the merge run with every count set to 0
+    just before and read just after. Returns the phase's report and its
+    launches."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+    from horizongs_tpu_torch.cli import train as train_cli_mod
+    from horizongs_tpu_torch.cli.merge import main as merge_main
+    from horizongs_tpu_torch.cli.partition import main as partition_main
+    from horizongs_tpu_torch.data import scene as scene_mod
+    from horizongs_tpu_torch.data.synthetic import lookat_camera
+    from horizongs_tpu_torch.io.checkpoints import (
+        load_explicit_ply, load_mlp_checkpoints, search_max_iteration)
+    from horizongs_tpu_torch.models.config import ModelConfig
+    from horizongs_tpu_torch.models.explicit import (
+        explicit_state_from_arrays, render_explicit)
+    from horizongs_tpu_torch.parallel import chunks as chunks_mod
+    from horizongs_tpu_torch.train import evaluate as evaluate_mod
+    from horizongs_tpu_torch.train import trainer as trainer_mod
+    n_k = len(kernels)
+    zero = (0,) * n_k
+    phase = [0] * n_k
+    data = info["data"]
+    rep = {}
+
+    def last_iteration(mdir):
+        it = search_max_iteration(os.path.join(mdir, "point_cloud"))
+        return os.path.join(mdir, "point_cloud", f"iteration_{it}")
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_chunks_"))
+    cwd = os.getcwd()
+    try:
+        os.chdir(work)
+        # 1. partition: host numpy, no kernel --------------------------------
+        with open(root / "configs" / "synthetic" / "chunks512.yaml") as f:
+            cfg = yaml.safe_load(f)
+        cfg["data_params"]["source_path"] = data
+        cfg["chunk_coarse"]["optim_params"]["iterations"] = coarse_its
+        cfg["chunk_fine"]["optim_params"]["iterations"] = fine_its
+        os.makedirs("cfg")
+        with open("cfg/chunks512.yaml", "w") as f:
+            yaml.safe_dump(cfg, f)
+        _reset(kernels)
+        t0 = time.perf_counter()
+        rc = partition_main(["--config", "cfg/chunks512.yaml"])
+        partition_ms = (time.perf_counter() - t0) * 1e3
+        _require(rc == 0 and _counts(kernels) == zero,
+                 f"partition returned {rc}, launched {_counts(kernels)}")
+        with open(os.path.join(data, "chunks", "partitions.json")) as f:
+            meta = json.load(f)
+        parts = {}
+        for cid, c in meta["chunks"].items():
+            with open(os.path.join(data, "chunks", cid,
+                                   "transforms.json")) as f:
+                frames = len(json.load(f)["frames"])
+            parts[cid] = {"cameras": c["n_cameras"], "frames": frames,
+                          "points": c["n_points"],
+                          "true_bounds": c["true_bounds"],
+                          "bounds": c["bounds"]}
+            _require(frames > 0 and c["n_points"] > 0,
+                     f"chunk {cid}: {frames} frames, {c['n_points']} points")
+            print(f"chunks: {cid}: {c['n_cameras']} cameras, {frames} "
+                  f"frames written, {c['n_points']} points, true bounds "
+                  f"{c['true_bounds']}, bounds {c['bounds']}", flush=True)
+        with open(os.path.join("cfg", "chunk_coarse",
+                               f"{next(iter(meta['chunks']))}.yaml")) as f:
+            kw = yaml.safe_load(f)["model_params"]["model_config"]["kwargs"]
+        lod = {k: kw[k] for k in ("standard_dist", "aerial_levels",
+                                  "street_levels")}
+        print(f"chunks: partition {partition_ms:.1f} ms into "
+              f"{len(parts)} chunks; estimated LOD {lod}", flush=True)
+        rep["partition"] = {"ms": partition_ms, "chunks": parts,
+                            "lod": lod}
+
+        # 2. each chunk coarse then fine, in this process --------------------
+        out_root = os.path.join("outputs", "synthetic", "chunks512")
+        cfgs, mps = [], []
+        for cid in meta["chunks"]:
+            for stage in ("chunk_coarse", "chunk_fine"):
+                cfgs.append(os.path.join("cfg", stage, f"{cid}.yaml"))
+                mps.append(os.path.join(out_root, stage, cid))
+        jobs, runs, renders, scenes, fine_epochs = [], [], [], [], []
+
+        def wrap_main(orig):
+            def main(argv):
+                n_runs, n_renders = len(runs), len(renders)
+                _reset(kernels)
+                t0 = time.perf_counter()
+                rc = orig(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                total = _counts(kernels)
+                for i, n in enumerate(total):
+                    phase[i] += n
+                jobs.append({"config": argv[1], "rc": rc, "total": total,
+                             "seconds": seconds, "runs": runs[n_runs:],
+                             "renders": renders[n_renders:],
+                             "scene": scenes[-1]})
+                return rc
+            return main
+
+        def wrap_train(orig):
+            def train(self, *args, **kw):
+                before = _counts(kernels)
+                t0 = time.perf_counter()
+                hist = orig(self, *args, **kw)
+                torch.cuda.synchronize()
+                runs.append({"trainer": self, "hist": hist,
+                             "seconds": time.perf_counter() - t0,
+                             "launches": tuple(a - b for a, b in zip(
+                                 _counts(kernels), before))})
+                return hist
+            return train
+
+        def wrap_render(orig):
+            def render(*args, **kw):
+                pkg = orig(*args, **kw)
+                renders.append(int(pkg["n_dropped"]))
+                return pkg
+            return render
+
+        class TimedScene(scene_mod.Scene):
+            def __init__(self, *args, **kw):
+                t0 = time.perf_counter()
+                super().__init__(*args, **kw)
+                scenes.append({"scene": self,
+                               "seconds": time.perf_counter() - t0})
+
+        def wrap_densify(orig):
+            return _checked_densify(orig, lambda: scenes[-1]["scene"].base,
+                                    fine_epochs, dev)
+
+        t0 = time.perf_counter()
+        with _Wrapped(train_cli_mod, "main", wrap_main), \
+                _Wrapped(trainer_mod.Trainer, "train", wrap_train), \
+                _Wrapped(trainer_mod, "run_densify", wrap_densify), \
+                _Wrapped(evaluate_mod, "render", wrap_render), \
+                _Wrapped(scene_mod, "Scene", lambda orig: TimedScene):
+            chunks_mod.train_chunks(cfgs, mps, ["--disable_tb"])
+        train_s = time.perf_counter() - t0
+        _require(len(jobs) == len(cfgs), f"{len(jobs)} chunk jobs ran")
+        job_rep = []
+        for job, mdir in zip(jobs, mps):
+            name = job["config"]
+            _require(job["rc"] == 0 and len(job["runs"]) == 1,
+                     f"{name}: rc {job['rc']}, {len(job['runs'])} runs")
+            run, sc = job["runs"][0], job["scene"]["scene"]
+            tr, hist = run["trainer"], run["hist"]
+            n = len(hist)
+            fine = "chunk_fine" in name
+            _require(n == (fine_its if fine else coarse_its),
+                     f"{name}: {n} iterations")
+            _require(run["launches"] == (n, n) + zero[2:],
+                     f"{name}: kernels launched {run['launches']} in {n} "
+                     f"iterations")
+            ev = tuple(t - r for t, r in zip(job["total"], run["launches"]))
+            views = len(sc.get_test_cameras() or sc.get_train_cameras())
+            _require(ev == (len(job["renders"]),) + zero[1:]
+                     and job["renders"].count(0) == views,
+                     f"{name}: evaluation launched {ev} for {views} views, "
+                     f"dropped counts {job['renders']}")
+            _require(all(math.isfinite(x) for x in hist),
+                     f"{name}: a loss is not finite")
+            overflows = tr.records["overflows"]
+            _require(all(o["widened"] or o["margin"] * 1.5 >
+                         tr.MARGIN_CEIL for o in overflows),
+                     f"{name}: an overflow was not recalibrated {overflows}")
+            dens = tr.records["densify"]
+            _require(len(dens) >= (1 if fine else 2),
+                     f"{name}: densify epochs {dens}")
+            ply = os.path.join(last_iteration(mdir),
+                               "point_cloud_explicit.ply")
+            _require(os.path.isfile(ply), f"{name}: no {ply}")
+            if fine:
+                # the generated config's model directory, unedited
+                coarse_dir = mdir.replace("chunk_fine", "chunk_coarse")
+                _require(sc.stage == "fine" and sc.frozen_mlps
+                         and sc.lp.pretrained_checkpoint == coarse_dir,
+                         f"{name}: not a fine stage from {coarse_dir}")
+                coarse_mlps = load_mlp_checkpoints(
+                    last_iteration(coarse_dir), device=dev)
+                _require(all(torch.equal(a, b) for a, b in zip(
+                    tr.state.params.mlps.parameters(),
+                    coarse_mlps.parameters())),
+                    f"{name}: the frozen MLPs differ from the coarse model's")
+            it_ms = tr.records["iteration_ms"]
+            job_rep.append({
+                "config": name, "scene_load_s": job["scene"]["seconds"],
+                "iterations": n, "train_s": run["seconds"],
+                "iterations_per_s": n / run["seconds"],
+                "iteration_ms_p50": _median(it_ms),
+                "iteration_ms_p90": _pct(it_ms, 0.9),
+                "densify_epochs": [{k: d.get(k) for k in (
+                    "iteration", "added", "pruned", "decision_ms",
+                    "grow_ms", "repack_ms")} for d in dens],
+                "overflows": len(overflows),
+                "anchors_final": int(tr.state.n),
+                "eval_renders": len(job["renders"]), "eval_views": views,
+                "job_s": job["seconds"],
+                "launches_train": run["launches"][:4],
+                "launches_eval": ev[:4]})
+            print(f"chunks: {name}: scene {job['scene']['seconds']:.2f} s, "
+                  f"{n} iterations at {n / run['seconds']:.2f} it/s (p50 "
+                  f"{_median(it_ms):.2f}, p90 {_pct(it_ms, 0.9):.2f} ms), "
+                  f"{len(dens)} densify epochs "
+                  f"{[(d['iteration'], d['added'], d['pruned']) for d in dens]}"
+                  f", {int(tr.state.n)} anchors", flush=True)
+        _require(fine_epochs and all(e["equal_to_base"] for e in fine_epochs),
+                 f"fine: coarse rows after the epochs {fine_epochs}")
+        rep["train"] = {"seconds": train_s, "jobs": job_rep,
+                        "fine_epochs": fine_epochs}
+
+        # 3. merge and its evaluation ----------------------------------------
+        ev_cfg = {k: v for k, v in cfg["data_params"].items()
+                  if k not in _PARTITION_KEYS}
+        with open("cfg/eval.yaml", "w") as f:
+            yaml.safe_dump({"model_params": ev_cfg}, f)
+        passes = {}
+
+        def wrap_consolidate(orig):
+            def consolidate(*args, **kw):
+                passes["start"] = time.perf_counter()
+                path = orig(*args, **kw)
+                passes["end"] = time.perf_counter()
+                return path
+            return consolidate
+
+        class TimedWriter(chunks_mod.PlyStreamWriter):
+            def __init__(self, *args, **kw):
+                passes["pass2"] = time.perf_counter()
+                super().__init__(*args, **kw)
+
+        merge_renders = []
+
+        def wrap_explicit(orig):
+            def render(*args, **kw):
+                pkg = orig(*args, **kw)
+                merge_renders.append(int(pkg["n_dropped"]))
+                return pkg
+            return render
+
+        _reset(kernels)
+        t0 = time.perf_counter()
+        with _Wrapped(chunks_mod, "consolidate_chunks", wrap_consolidate), \
+                _Wrapped(chunks_mod, "PlyStreamWriter",
+                         lambda orig: TimedWriter), \
+                _Wrapped(evaluate_mod, "render_explicit", wrap_explicit):
+            rc = merge_main(["-m", out_root, "--source_path", data,
+                             "--eval_config", "cfg/eval.yaml"])
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t0
+        launched = _counts(kernels)
+        for i, n in enumerate(launched):
+            phase[i] += n
+        _require(rc == 0, f"merge returned {rc}")
+        n_test = info["n_test"]
+        _require(launched == (len(merge_renders),) + zero[1:]
+                 and merge_renders.count(0) == n_test,
+                 f"merge: kernels launched {launched} for {n_test} views, "
+                 f"dropped counts {merge_renders}")
+
+        # the merged PLY against the chunks', recounted on the card
+        merged_dir = os.path.join(out_root, "merged_model")
+        merged_ply = os.path.join(last_iteration(merged_dir),
+                                  "point_cloud_explicit.ply")
+        merged, merged_info = load_explicit_ply(merged_ply)
+        kept, cropped, infos = {}, [], []
+        inside = torch.zeros(merged["xyz"].shape[0], dtype=torch.bool,
+                             device=dev)
+        mxyz = torch.from_numpy(merged["xyz"]).to(dev)
+        for cid, c in meta["chunks"].items():
+            arrays, chunk_info = load_explicit_ply(os.path.join(
+                last_iteration(os.path.join(out_root, "chunk_fine", cid)),
+                "point_cloud_explicit.ply"))
+            (x0, x1), (y0, y1) = c["true_bounds"]
+            xyz = torch.from_numpy(arrays["xyz"]).to(dev)
+            mask = ((xyz[:, 0] >= x0) & (xyz[:, 0] <= x1)
+                    & (xyz[:, 1] >= y0) & (xyz[:, 1] <= y1))
+            kept[cid] = int(mask.sum())
+            m = mask.cpu().numpy()
+            cropped.append({k: v[m] for k, v in arrays.items()})
+            infos.append(chunk_info)
+            inside |= ((mxyz[:, 0] >= x0) & (mxyz[:, 0] <= x1)
+                       & (mxyz[:, 1] >= y0) & (mxyz[:, 1] <= y1))
+        n_rows = merged["xyz"].shape[0]
+        _require(n_rows == sum(kept.values()) > 0,
+                 f"merged rows {n_rows} against kept {kept}")
+        differ = [k for k in merged if not np.array_equal(
+            merged[k], np.concatenate([c[k] for c in cropped]))]
+        _require(not differ, f"merged arrays differ from the cropped "
+                 f"chunks' concatenation: {differ}")
+        _require(bool(inside.all()), "a merged gaussian lies outside the "
+                 "chunks' true bounds")
+        _require(all(i == merged_info for i in infos),
+                 f"merged obj_info {merged_info} against the chunks' {infos}")
+        with open(os.path.join(merged_dir, "results_test.json")) as f:
+            res = next(iter(json.load(f).values()))["all"]
+        _require(res["n_views"] == n_test and math.isfinite(res["PSNR"])
+                 and math.isfinite(res["SSIM"]), f"merged results {res}")
+        merge_rep = {
+            "seconds": merge_s,
+            "pass1_ms": (passes["pass2"] - passes["start"]) * 1e3,
+            "pass2_ms": (passes["end"] - passes["pass2"]) * 1e3,
+            "rows_kept": kept, "rows_merged": n_rows,
+            "ply_bytes": os.path.getsize(merged_ply),
+            "obj_info": merged_info, "eval_renders": len(merge_renders),
+            "launches": launched[:4], "test_psnr": res["PSNR"],
+            "test_ssim": res["SSIM"],
+            "phase10_coarse_test_psnr": info["test_psnr"],
+            "phase10_fine_test_psnr": info["fine_test_psnr"]}
+
+        # one 256x256 view of the merged model, K1 against the dense oracle
+        mcfg = ModelConfig.from_dict(ev_cfg["model_config"])
+        mcfg = dataclasses.replace(mcfg, **{
+            k: type(getattr(mcfg, k))(merged_info[k])
+            for k in ("standard_dist", "aerial_levels", "street_levels")})
+        est = explicit_state_from_arrays(merged, device=dev)
+        cam = lookat_camera(width=256, height=256, eye=(0, 0, -4),
+                            device=dev)
+        bg = torch.zeros(3, device=dev)
+        with torch.no_grad():
+            k1 = render_explicit(cam, mcfg, est, bg)
+            dense = render_explicit(cam, mcfg, est, bg, rasterizer="dense")
+        _require(int(k1["n_dropped"]) == 0, "merged view: dropped")
+        view_err = {k: float((k1[k] - dense[k]).abs().max())
+                    for k in ("render", "render_alphas")}
+        _require(max(view_err.values()) <= 2e-4
+                 and float(dense["render_alphas"].max()) > 0.5,
+                 f"merged view: K1 against the dense oracle {view_err}")
+        merge_rep["view_256_max_abs_err"] = view_err
+        rep["merge"] = merge_rep
+        print(f"chunks: merge pass 1 {merge_rep['pass1_ms']:.1f} ms, pass 2 "
+              f"{merge_rep['pass2_ms']:.1f} ms, rows kept {kept} -> {n_rows} "
+              f"({merge_rep['ply_bytes']} B); merged test PSNR "
+              f"{res['PSNR']:.3f} SSIM {res['SSIM']:.4f} (phase 10: coarse "
+              f"{info['test_psnr']:.3f}, fine {info['fine_test_psnr']:.3f}); "
+              f"256x256 view against the dense oracle {view_err}",
+              flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
     return rep, tuple(phase)
 
 
@@ -2039,19 +2431,24 @@ def main() -> int:
     _require(all(math.isfinite(x) for x in losses_d), f"loss {losses_d}")
     _require(max(dropped_d) == 0, f"instances dropped: {dropped_d}")
 
-    # 10. the train CLI on the flagship512 config, and 11. the serving and
-    # export CLIs on the model directories it writes ---------------------
-    t11 = []
+    # 10. the train CLI on the flagship512 config, 11. the serving and
+    # export CLIs on the model directories it writes and 12. the chunk
+    # pipeline on its dataset ---------------------------------------------
+    t11, t12 = [], []
 
-    def serve_cli(coarse, surfel, info):
+    def serve_cli_and_chunks(coarse, surfel, info):
         t0 = time.perf_counter()
-        out = _serve_cli(coarse, surfel, info, ALL, dev)
+        out11 = _serve_cli(coarse, surfel, info, ALL, dev)
         t11.append(time.perf_counter() - t0)
-        return out
+        t0 = time.perf_counter()
+        out12 = _chunks(root, info, ALL, dev)
+        t12.append(time.perf_counter() - t0)
+        return out11, out12
 
     t_cli = time.perf_counter()
-    cli10, (rep11, launches11) = _train_cli(root, ALL, dev, then=serve_cli)
-    cli10["seconds"] = time.perf_counter() - t_cli - t11[0]
+    cli10, ((rep11, launches11), (rep12, launches12)) = _train_cli(
+        root, ALL, dev, then=serve_cli_and_chunks)
+    cli10["seconds"] = time.perf_counter() - t_cli - t11[0] - t12[0]
     c10 = cli10["coarse"]
     print(f"train CLI: {c10['iterations']} coarse iterations at "
           f"{c10['iterations_per_s']:.2f} it/s (p50 "
@@ -2070,11 +2467,20 @@ def main() -> int:
           f"{rep11['metrics']['lpips_ms_per_512_pair']:.3f} ms/pair; TSDF "
           f"fuse {m11['fuse_ms']:.1f} ms (CPU copy "
           f"{m11['fuse_cpu_copy_ms']:.1f}); {t11[0]:.1f} s", flush=True)
+    m12 = rep12["merge"]
+    print(f"chunks: {len(rep12['partition']['chunks'])} chunks, "
+          f"{len(rep12['train']['jobs'])} jobs in "
+          f"{rep12['train']['seconds']:.1f} s ("
+          + ", ".join(f"{j['iterations_per_s']:.2f}"
+                      for j in rep12["train"]["jobs"])
+          + f" it/s), merge {m12['rows_merged']} rows, merged PSNR "
+          f"{m12['test_psnr']:.3f}; {t12[0]:.1f} s", flush=True)
 
-    # 12. report -------------------------------------------------------------
+    # 13. report -------------------------------------------------------------
     paths = {"serve_3dgs": sv["launches"], "train_3dgs": tr["launches"],
              "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"],
-             "train_cli": cli10["launches"], "serve_cli": launches11}
+             "train_cli": cli10["launches"], "serve_cli": launches11,
+             "chunks": launches12}
 
     def launches(i):
         return {p: n[i] for p, n in paths.items()}
@@ -2124,6 +2530,12 @@ def main() -> int:
         "seconds": t11[0],
         "launches": dict(zip(("K1", "K2", "K3", "K4"), launches11[:4])),
         **rep11}))
+    print(json.dumps({
+        "slice": "chunks flagship512 (configs/synthetic/chunks512.yaml): "
+                 "partition 2x1 -> coarse + fine per chunk -> merge -> "
+                 "evaluation (cuda)", "card": card, "seconds": t12[0],
+        "launches": dict(zip(("K1", "K2", "K3", "K4"), launches12[:4])),
+        **rep12}))
     print(json.dumps({"slice": "tools T1-T3 (cuda)", "card": card,
                       "seconds": tools_s,
                       "T1_ms": t1_times, "T1_equal_l_sweep": t1_sweep,

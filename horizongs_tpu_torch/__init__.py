@@ -13,7 +13,8 @@ Layer map (bottom -> top):
   io/        PLY codec, anchor and explicit PLYs, MLP weights, training
              checkpoints
   data/      dataset readers (Blender, COLMAP, city, UCGS), camera loading,
-             the scene, synthetic scenes and the synthetic dataset writer
+             the scene, synthetic scenes and the synthetic dataset writer,
+             chunk partitioning, depth back-projection and scale fits
   models/    model config, MLP decoders, anchor tables and LOD decode, the
              explicit (SH-baked) model
   ops/       projection, tile binning, dense oracles, the 3DGS compositors
@@ -26,8 +27,9 @@ Layer map (bottom -> top):
              the trainer, the evaluation and LPIPS
   utils/     fly-through paths, TSDF fusion and mesh extraction, vis
   viewer/    the SIBR network-GUI viewer server
-  cli/       train, render, metrics, view, export_mesh, convert and the
-             synthetic dataset writer
+  parallel/  chunk configs, chunk jobs and the streaming chunk merge
+  cli/       train, render, metrics, view, export_mesh, convert, partition,
+             merge, generate_depth and the synthetic dataset writer
   convert.py the JAX package's parameters (as numpy) -> this package
 """
 

@@ -5,8 +5,9 @@ The JAX package's `data/scene.py` (a functional port of
 builds the camera lists per resolution scale on the device, writes
 input.ply and cameras.json, and initialises the training state from the
 point cloud (coarse stage, with the optional camera weed-out), from a
-pretrained coarse iteration directory (fine stage: frozen MLPs and the
-rollback base copies, `create_from_pretrained`), or from a saved
+pretrained coarse iteration directory or a model directory, whose last
+saved iteration it takes (fine stage: frozen MLPs and the rollback base
+copies, `create_from_pretrained`), or from a saved
 iteration; with `explicit=True` a saved iteration loads as the baked
 explicit model (`explicit_state`, no training state). `save` bakes a
 view-independent SH model to point_cloud_explicit.ply beside the anchors.
@@ -88,6 +89,11 @@ class Scene:
                       scale=lp.scale, llffhold=getattr(lp, "llffhold", 32),
                       images=lp.images)
         scene_info = loader(lp.source_path, **kwargs)
+        if scene_info.point_cloud.points.shape[0] == 0:
+            raise ValueError(
+                f"{scene_info.ply_path} holds no points: a chunk whose "
+                f"bounds take in none of the scene's points cannot be "
+                f"trained (partition it with fewer chunks)")
         self.scene_info = scene_info
         self.cameras_extent = scene_info.nerf_normalization["radius"]
 
@@ -141,7 +147,8 @@ class Scene:
             # fine stage (`create_from_pretrained`, lod_model.py:619-671)
             self.stage = "fine"
             self.frozen_mlps = True
-            ckpt = lp.pretrained_checkpoint
+            ckpt = pretrained_iteration_dir(lp.pretrained_checkpoint)
+            log(f"Fine stage from {ckpt}")
             state, info = load_anchor_ply(
                 os.path.join(ckpt, "point_cloud.ply"), self.cfg, device=dev)
             self.cfg = _fold_obj_info(self.cfg, info)
@@ -203,6 +210,18 @@ class Scene:
             save_explicit_ply(
                 os.path.join(it_dir, "point_cloud_explicit.ply"), self.cfg,
                 bake_explicit(self.cfg, mlps, astate))
+
+
+def pretrained_iteration_dir(path: str) -> str:
+    """The iteration directory a fine stage loads: `path` itself where it
+    holds point_cloud.ply, else the highest `point_cloud/iteration_*`
+    under it (a coarse model directory, as the chunk and single-scene
+    configs name it; the JAX package raises FileNotFoundError there)."""
+    if not os.path.exists(os.path.join(path, "point_cloud.ply")):
+        it = search_max_iteration(os.path.join(path, "point_cloud"))
+        if it >= 0:
+            return os.path.join(path, "point_cloud", f"iteration_{it}")
+    return path
 
 
 def _fold_obj_info(cfg: ModelConfig, info: dict) -> ModelConfig:

@@ -1,8 +1,8 @@
 """Minimal PLY codec (binary little-endian + ascii), self-contained.
 
 A copy of `horizongs_tpu/io/plyio.py` (this package imports nothing of the
-JAX package; the chunk merger's stream writer stays there until the
-chunking port), so both packages write the same bytes. Replaces the
+JAX package), so both packages write the same bytes; its stream writer
+serves the chunk merger (`parallel/chunks.py`). Replaces the
 reference's `plyfile` dependency. Supports exactly what the
 framework needs: a single 'vertex' element of float32/float64/int
 properties, plus `obj_info` header lines (the reference stores
@@ -56,6 +56,53 @@ def write_ply(path: str, props: Dict[str, np.ndarray],
         f.write(rec.tobytes())
 
 
+class PlyStreamWriter:
+    """Incremental binary PLY writer: the header goes out first (total
+    row count must be known up front), then row blocks append one at a
+    time — peak memory is one block, not the concatenated whole. Used by
+    the chunk merger (`parallel/chunks.py`), whose reference counterpart
+    (`merge.py:55-217`) concatenates every chunk in RAM."""
+
+    def __init__(self, path: str, schema: List[Tuple[str, np.dtype]],
+                 n_total: int, obj_info: List[str] | None = None):
+        self._schema = [(name, np.dtype(dt)) for name, dt in schema]
+        self._n = n_total
+        self._written = 0
+        lines = ["ply", "format binary_little_endian 1.0"]
+        for info in obj_info or []:
+            lines.append(f"obj_info {info}")
+        lines.append(f"element vertex {n_total}")
+        for name, dt in self._schema:
+            lines.append(f"property {_NAMES[dt]} {name}")
+        lines.append("end_header")
+        self._f = open(path, "wb")
+        self._f.write(("\n".join(lines) + "\n").encode("ascii"))
+
+    def append(self, props: Dict[str, np.ndarray]) -> None:
+        n = len(np.asarray(props[self._schema[0][0]]))
+        rec = np.empty(n, dtype=self._schema)
+        for name, dt in self._schema:
+            rec[name] = np.asarray(props[name]).reshape(n).astype(dt)
+        self._f.write(rec.tobytes())
+        self._written += n
+
+    def close(self) -> None:
+        self._f.close()
+        if self._written != self._n:
+            raise ValueError(f"PlyStreamWriter: header promised {self._n} "
+                             f"rows, got {self._written}")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.close()
+        else:
+            self._f.close()
+        return False
+
+
 def read_ply(path: str) -> Tuple[Dict[str, np.ndarray], List[str]]:
     """Returns ({name: (N,) array}, obj_info lines)."""
     with open(path, "rb") as f:
@@ -106,13 +153,15 @@ def read_ply(path: str) -> Tuple[Dict[str, np.ndarray], List[str]]:
 
 
 def read_points_ply(path: str):
-    """Point cloud with optional color/normals -> (points, colors, normals)."""
+    """Point cloud with optional color/normals -> (points, colors, normals);
+    an empty cloud gives (0, 3) arrays (the JAX package's reader fails on
+    the colour range of an empty array)."""
     props, _ = read_ply(path)
     pts = np.stack([props["x"], props["y"], props["z"]], axis=1).astype(np.float32)
     if "red" in props:
         colors = np.stack([props["red"], props["green"], props["blue"]],
                           axis=1).astype(np.float32)
-        if colors.max() > 1.5:
+        if colors.size and colors.max() > 1.5:
             colors = colors / 255.0
     else:
         colors = np.zeros_like(pts)

@@ -800,3 +800,59 @@ def test_explicit_bake_on_card_matches_cpu(card):
     assert float(exp["render_alphas"].max()) > 0.5
     torch.testing.assert_close(exp["render"], neural["render"], atol=2e-3,
                                rtol=0)
+
+
+@pytest.mark.cuda
+def test_merged_chunks_render_on_card_matches_cpu(card, tmp_path):
+    """Two chunks of the SH1 flagship-width model, baked on the CPU and
+    merged by `consolidate_chunks` (each cropped to its half of x): the
+    merged explicit model rendered through K1 on the card equals the plain
+    K1 render on the CPU, images and alphas within 2e-4."""
+    import os
+
+    from horizongs_tpu_torch.io.checkpoints import (
+        load_explicit_ply, save_explicit_ply)
+    from horizongs_tpu_torch.models.anchors import (
+        init_anchor_state_from_points)
+    from horizongs_tpu_torch.models.config import ModelConfig
+    from horizongs_tpu_torch.models.explicit import (
+        bake_explicit, explicit_state_from_arrays, render_explicit)
+    from horizongs_tpu_torch.models.factory import new_mlps
+    from horizongs_tpu_torch.parallel.chunks import consolidate_chunks
+    cfg = ModelConfig(name="GaussianLoDModel", feat_dim=32, n_offsets=10,
+                      view_dim=0, color_attr="SH1", render_mode="RGB+ED",
+                      voxel_size=0.05, fork=2, aerial_levels=2,
+                      street_levels=4, standard_dist=8.0)
+    pts = random_gaussians(4000, seed=1, extent=0.8)["means"]
+    dirs, meta = {}, {"chunks": {}}
+    for i, (cid, keep, tb) in enumerate((
+            ("0_0", pts[:, 0] < 0.1, [[-4.0, 0.0], [-4.0, 4.0]]),
+            ("1_0", pts[:, 0] > -0.1, [[0.0, 4.0], [-4.0, 4.0]]))):
+        st = init_anchor_state_from_points(cfg, pts[keep], device="cpu")
+        gen = torch.Generator().manual_seed(i)
+        live = (torch.arange(st.capacity) < st.n)[:, None]
+        st = st._replace(feat=torch.randn(st.feat.shape, generator=gen)
+                         * live)
+        dirs[cid] = str(tmp_path / cid)
+        save_explicit_ply(os.path.join(
+            dirs[cid], "point_cloud", "iteration_7",
+            "point_cloud_explicit.ply"), cfg,
+            bake_explicit(cfg, new_mlps(cfg, seed=i, device="cpu"), st))
+        meta["chunks"][cid] = {"true_bounds": tb}
+    arrays, _ = load_explicit_ply(consolidate_chunks(
+        dirs, meta, str(tmp_path / "merged"), cfg))
+    assert arrays["xyz"].shape[0] > 1000
+    out = {}
+    for dev in (card, "cpu"):
+        est = explicit_state_from_arrays(arrays, device=dev)
+        cam = lookat_camera(width=256, height=256, eye=(0, 0, -4),
+                            device=dev)
+        with torch.no_grad():
+            out[str(dev)] = render_explicit(cam, cfg, est,
+                                            torch.zeros(3, device=dev))
+    got, want = out[str(card)], out["cpu"]
+    assert int(got["n_dropped"]) == int(want["n_dropped"]) == 0
+    assert float(want["render_alphas"].max()) > 0.5
+    for k in ("render", "render_alphas"):
+        torch.testing.assert_close(got[k].cpu(), want[k], atol=2e-4, rtol=0,
+                                   msg=k)
