@@ -139,18 +139,47 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                dense oracle (2e-4); timed (partition ms, per job scene
                load, it/s, iteration p50/p90, densify epochs; merge pass 1
                and pass 2 ms)
- 13. report    per-view and per-step timings, the layer breakdowns, the
+ 13. mesh      `parallel/step.py` on `torch.distributed`, each run with
+               the counts set to 0 just before it and read just after
+               (ranks write theirs to a file, summed here). The steps run
+               `tools/mesh_check` through `torch.distributed.run` on the
+               flagship model of phase 6 at 1920x1088: a 1x1 mesh with
+               NCCL (one rank), then two gloo ranks on this one card: the
+               1x2 band step of 3DGS (K1/K2) and of 2DGS (K3/K4, the
+               normal loss held, the distortion on in the timed steps),
+               the 3DGS replicated fallback, and 2x1 data-parallel steps
+               of two views and of one view repeated at weight 1/2. Each
+               case's gradients and losses are held to the single-device
+               `TrainStep` (the views' weighted mean; 2e-4 x max, rtol
+               1e-5), each kernel launched once a step a rank, nothing
+               dropped; 2 + N timed steps a case (p50, the exchange's
+               bytes and ms with host staging, the collectives' ms, a
+               profiled step on every rank, the band matrix's column
+               sums); the forward and backward kernels of one step of the
+               1x1, 1x2 (both models) and 2x1 cases against their plain
+               versions on the arguments that step gave them (a band's
+               rows; K3/K4 with its first row). Then, inside phase 10, on
+               its dataset: `cli.train --mesh 1x2` through
+               `torch.distributed.run` (`--mesh-cli`: 300 coarse
+               iterations, a densify epoch, a sharded checkpoint, the
+               test-set evaluation) and a resume from that checkpoint at
+               `--mesh 1x1` (NCCL) for 20: K1 and K2 once an iteration a
+               rank plus K1 once an evaluation render, every overflow
+               recalibrated, PSNR finite
+ 14. report    per-view and per-step timings, the layer breakdowns, the
                densify epoch, the train CLI, the serve CLI, the chunks,
-               the tools' tables, the kernels line, and last the device
-               line
+               the mesh, the tools' tables, the kernels line, and last the
+               device line
 
 Prints nothing after a failure and exits non-zero without a card or
-without the package beside it.
+without the package beside it. `--mesh-cli` is the worker mode phase 13
+starts itself.
 """
 import collections
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -509,14 +538,15 @@ def _surfel_cases(fields, gauss_id, tile_starts, n_tiles_x, acc, rec):
             "pairs_cut_by_z": behind, "pixels_never_crossing_half": never}
 
 
-def _compare_k3(kern, plain, atol, k_args):
+def _compare_k3(kern, plain, atol, k_args, row0=0):
     """Max errors of K3 against its plain version, and the tolerance check:
     the acc rows (rgb, normal, alpha) within `atol`; D within `atol` + rtol
     2e-4; the distortion within `atol` + 2e-4 x (|distortion| + D) (its
     terms are of the size of D, summed in other orders); exp(log T) atol
     1e-4; the median depth equal where both name the same surfel; n_contrib
     and the median's position equal or at a boundary that rounding moves
-    (`raster2d.records_off_the_boundary`)."""
+    (`raster2d.records_off_the_boundary`). `row0`: the first pixel row the
+    runs composited (a band of a view)."""
     import torch
     from horizongs_tpu_torch.ops.raster2d import records_off_the_boundary
     (acc_k, aux_k, rec_k), (acc_p, aux_p, rec_p) = kern, plain
@@ -528,7 +558,7 @@ def _compare_k3(kern, plain, atol, k_args):
     same = rec_k[:, 1] == rec_p[:, 1]
     med_err = (aux_k[:, 3] - aux_p[:, 3]).abs()[same].max().item()
     off = records_off_the_boundary(*k_args[:4], rec_k, aux_k[:, 0], rec_p,
-                                   aux_p[:, 0])
+                                   aux_p[:, 0], row0)
     ok = (err_acc <= atol and bool((d_err <= atol + 2e-4 * D_p).all())
           and bool((x_err <= atol + 2e-4 * (aux_p[:, 2].abs() + D_p)).all())
           and err_T <= 1e-4 and med_err <= atol and off == (0, 0))
@@ -1865,6 +1895,358 @@ def _chunks(root, info, kernels, dev, coarse_its=300, fine_its=150):
     return rep, tuple(phase)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the mesh (parallel/step.py on torch.distributed)
+# ---------------------------------------------------------------------------
+
+def _mesh_cli_worker(out_dir, *argv):
+    """`python -m torch.distributed.run ... chip_smoke.py --mesh-cli <dir>
+    <cli.train arguments>`: one rank of the train CLI, its K1-K4 counts
+    set to 0 just before and read just after, its trainer's figures in
+    <dir>/rank<RANK>.json."""
+    import torch
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root))
+    from horizongs_tpu_torch.cli.train import main as train_main
+    from horizongs_tpu_torch.ops import raster2d, raster3d
+    from horizongs_tpu_torch.train import evaluate as evaluate_mod
+    from horizongs_tpu_torch.train import trainer as trainer_mod
+    kernels = (raster3d.KERNEL, raster3d.KERNEL_BWD, raster2d.KERNEL_2D,
+               raster2d.KERNEL_2D_BWD)
+    runs, renders = [], []
+
+    def wrap_train(orig):
+        def train(self, *a, **kw):
+            t0 = time.perf_counter()
+            hist = orig(self, *a, **kw)
+            torch.cuda.synchronize()
+            runs.append((self, hist, time.perf_counter() - t0))
+            return hist
+        return train
+
+    def wrap_render(orig):
+        def render(*a, **kw):
+            pkg = orig(*a, **kw)
+            renders.append(int(pkg["n_dropped"]))
+            return pkg
+        return render
+    _reset(kernels)
+    t0 = time.perf_counter()
+    with _Wrapped(trainer_mod.Trainer, "train", wrap_train), \
+            _Wrapped(evaluate_mod, "render", wrap_render):
+        rc = train_main(list(argv))
+    seconds = time.perf_counter() - t0
+    tr, hist, train_s = runs[-1]
+    rank = int(os.environ.get("RANK", 0))
+    it_ms, step_ms = tr.records["iteration_ms"], tr.records["step_ms"]
+    rep = {"rc": rc, "rank": rank, "launches": _counts(kernels),
+           "iterations": len(hist), "loss_first": hist[0],
+           "loss_last": hist[-1], "finite": all(map(math.isfinite, hist)),
+           "densify": tr.records["densify"],
+           "overflows": tr.records["overflows"],
+           "widened_or_capped": all(
+               o["widened"] or max(o["margin"], o["band_margin"]) * 1.5
+               > tr.MARGIN_CEIL for o in tr.records["overflows"]),
+           "eval_renders": len(renders), "eval_dropped": renders,
+           "seconds": seconds, "train_s": train_s,
+           "iterations_per_s": len(hist) / train_s,
+           "iteration_ms_p50": _median(it_ms),
+           "step_ms_p50": _median(step_ms),
+           "mesh": None if tr.mesh is None else [tr.mesh.shape["data"],
+                                                 tr.mesh.shape["model"]],
+           "backend": tr.mesh.backend if tr.mesh is not None else None}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    return rc
+
+
+def _spawn(cmds, env, timeout):
+    """Start every command together, wait for all; each must exit 0.
+    Returns their outputs."""
+    procs = [subprocess.Popen(c, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        _require(p.returncode == 0, f"{' '.join(map(str, p.args[:6]))} "
+                 f"exited {p.returncode}:\n{o[-6000:]}")
+    return outs
+
+
+def _band_kernels_vs_plain(path, dev):
+    """The forward and backward kernel of one sharded step, on the
+    arguments `tools/mesh_check --capture` wrote (a band's rows, K3 and K4
+    with the band's first row), against their plain versions at phases
+    4/5's tolerances. Returns (ok, errors)."""
+    import torch
+    from horizongs_tpu_torch.ops import raster2d, raster3d
+    cap = torch.load(path, map_location=dev, weights_only=False)
+    f, b = cap["fwd"], cap["bwd"]
+    if cap["gs"] == "2D":
+        ok1, e1 = _compare_k3(raster2d.rasterize2d_fwd(*f),
+                              raster2d.rasterize2d_fwd_plain(*f), 1e-4, f,
+                              row0=f[5])
+        ok2, e2 = _compare_k2(raster2d.rasterize2d_bwd(*b),
+                              raster2d.rasterize2d_bwd_plain(*b))
+    else:
+        ok1, e1 = _compare_k1(raster3d.rasterize_fwd(*f),
+                              raster3d.rasterize_fwd_plain(*f), 1e-4, f)
+        ok2, e2 = _compare_k2(raster3d.rasterize_bwd(*b),
+                              raster3d.rasterize_bwd_plain(*b))
+    torch.cuda.synchronize()
+    shape = {"n_tiles_x": f[3], "n_tiles_y": f[4], "records": f[0].shape[0],
+             "instances": int(f[2][-1])}
+    if cap["gs"] == "2D":
+        shape["row0"] = f[5]
+    return ok1 and ok2, {"shape": shape, "fwd": e1, "bwd": e2}
+
+
+def _mesh_check(root, nproc, cases, capture, out, steps):
+    """`tools/mesh_check` through `torch.distributed.run` in nproc ranks on
+    this card (NCCL for one rank, gloo for more: `parallel/mesh`); it
+    exits 1 unless every case held. Returns each rank's record and the
+    seconds it took."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), "-m",
+           "horizongs_tpu_torch.tools.mesh_check", "--out", str(out),
+           "--steps", str(steps)]
+    for c in cases:
+        cmd += ["--case", c]
+    for c in capture:
+        cmd += ["--capture", c]
+    t0 = time.perf_counter()
+    _spawn([cmd], dict(os.environ, PYTHONPATH=str(root)), 600)
+    ranks = []
+    for r in range(nproc):
+        with open(out / f"rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def _mesh_steps(root, kernels, dev):
+    """Phase 13, the steps at 1920x1088 through `tools/mesh_check` (the
+    flagship model of phase 6): a 1x1 mesh on NCCL, then 1x2 (3DGS bands,
+    the replicated fallback, 2DGS bands) and 2x1 (two views, one view
+    twice at weight 1/2) meshes of two gloo ranks on this card. Each
+    case's gradients and losses are held to the single-device `TrainStep`
+    on the same state and views, inside mesh_check; here each rank's
+    launches are checked and the band kernels held to their plain
+    versions on the arguments the steps gave them. Returns the report and
+    the K1-K4 launches (the gradient step and the timed steps, summed over
+    ranks)."""
+    import shutil
+    import tempfile
+    launches = [0] * len(kernels)
+    idx = {"3D": (0, 1), "2D": (2, 3)}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    rep = {"card": _smi("name,power.limit")}
+    try:
+        runs = [("nccl", 1, ["1x1"], ["1x1"], 10),
+                ("gloo", 2, ["1x2", "1x2:replicated", "1x2:2D", "2x1",
+                             "2x1:duplicate"], ["1x2", "1x2:2D", "2x1"], 5)]
+        for backend, nproc, cases, capture, steps in runs:
+            out = work / f"world{nproc}"
+            ranks, seconds = _mesh_check(root, nproc, cases, capture, out,
+                                         steps)
+            got = [r["backend"] for r in ranks]
+            _require(got == [backend] * nproc, f"mesh backends {got}")
+            rep[f"world{nproc}"] = {"seconds": seconds, "backend": backend,
+                                    "threads": ranks[0]["threads"],
+                                    "cases": {}}
+            for name in cases:
+                gs = "2D" if ":2D" in name else "3D"
+                c0 = ranks[0]["cases"][name]
+                _require(c0["held"], f"mesh {name}: not held: losses "
+                         f"{c0['loss']} vs {c0['loss_single_device']}, "
+                         f"worst gradient {c0['grad_worst_share_of_max']} x "
+                         f"max, dropped {c0['dropped_any']}")
+                per_rank = []
+                for r, rk in enumerate(ranks):
+                    c = rk["cases"][name]
+                    _require(c["launches_grad"] == [1, 1]
+                             and c["launches_timed"] == [steps, steps],
+                             f"mesh {name} rank {r}: launched "
+                             f"{c['launches_grad']}, {c['launches_timed']}")
+                    _require(max(c["dropped_timed"]) == 0 and all(
+                        map(math.isfinite, c["losses"])),
+                        f"mesh {name} rank {r}: dropped "
+                        f"{c['dropped_timed']}, losses {c['losses']}")
+                    for j, i in enumerate(idx[gs]):
+                        launches[i] += c["launches_grad"][j] \
+                            + c["launches_timed"][j]
+                    entry = {k: c[k] for k in (
+                        "step_ms_p50", "exchange", "collectives_ms_per_step",
+                        "records_local", "records_received", "n_instances",
+                        "band_instances_counted", "launches_grad",
+                        "launches_timed", "profile") if k in c}
+                    if name in capture:
+                        ok, errs = _band_kernels_vs_plain(
+                            out / f"capture_{name.replace(':', '_')}_rank"
+                                  f"{r}.pt", dev)
+                        _require(ok, f"mesh {name} rank {r}: a kernel "
+                                 f"disagrees with its plain version on the "
+                                 f"band's inputs: {errs}")
+                        entry["kernels_vs_plain"] = errs
+                    per_rank.append(entry)
+                rec = {k: c0[k] for k in (
+                    "loss", "loss_single_device", "grad_worst_share_of_max",
+                    "band_matrix", "band_loads", "single_device") if k in c0}
+                rec["per_rank"] = per_rank
+                rep[f"world{nproc}"]["cases"][name] = rec
+                t = per_rank[0]
+                line = (f"mesh: {name} {backend} loss {c0['loss'][0]:.6f} "
+                        f"(single device {c0['loss_single_device'][0]:.6f})"
+                        f", gradients within "
+                        f"{c0['grad_worst_share_of_max']:.2e} x max; step "
+                        f"p50 " + " / ".join(f"{x['step_ms_p50']:.2f}"
+                                              for x in per_rank)
+                        + f" ms, busy " + " / ".join(
+                            f"{x['profile']['device_busy_ms']:.3f}"
+                            for x in per_rank)
+                        + f" ms, exchange "
+                        f"{t['exchange']['bytes_per_step'] / 1e6:.2f} MB "
+                        + " / ".join(f"{x['exchange']['ms_per_step']:.2f}"
+                                     for x in per_rank)
+                        + " ms a step"
+                        + (" (host-staged)" if t["exchange"]["host_staged"]
+                           else "")
+                        + ", collectives " + " / ".join(
+                            f"{x['collectives_ms_per_step']:.2f}"
+                            for x in per_rank) + " ms")
+                if "band_loads" in c0:
+                    lo = c0["band_loads"]
+                    line += (", records local " + " / ".join(
+                        str(x["records_local"]) for x in per_rank)
+                        + ", received " + " / ".join(
+                            str(x["records_received"]) for x in per_rank))
+                    line += (f", band loads {lo} (max/mean "
+                             f"{max(lo) / (sum(lo) / len(lo)):.3f})")
+                if "single_device" in c0:
+                    sd = c0["single_device"]
+                    line += (f"; TrainStep p50 {sd['step_ms_p50']:.2f} ms, "
+                             f"busy {sd['profile']['device_busy_ms']:.3f}")
+                if any("kernels_vs_plain" in x for x in per_rank):
+                    line += "; K1-K4 on the band's inputs held to plain"
+                print(line, flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rep, launches
+
+
+def _mesh_cli(root, info, kernels, dev, its=300, resume_its=20):
+    """Phase 13, the train CLI: `--mesh 1x2` through
+    `torch.distributed.run` on phase 10's flagship512 dataset (two gloo
+    ranks on this card; densify epochs and a sharded checkpoint), then a
+    resume from that checkpoint at `--mesh 1x1` (NCCL), each with the
+    test-set evaluation. Every rank's K1-K4 counts are set to 0 just
+    before its run and read after. Returns the report and the launches
+    summed over ranks."""
+    import shutil
+    import tempfile
+
+    import yaml
+    n_k = len(kernels)
+    launches = [0] * n_k
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_meshcli_"))
+    env = dict(os.environ, PYTHONPATH=str(root))
+    rep = {}
+    try:
+        with open(root / "configs" / "synthetic" / "flagship512.yaml") as f:
+            c = yaml.safe_load(f)
+        c["model_params"]["source_path"] = info["data"]
+        cfg_path = work / "flagship512.yaml"
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump(c, f)
+
+        def launch(name, nproc, *argv):
+            out_dir = work / f"ranks_{name}"
+            t0 = time.perf_counter()
+            outs = _spawn([[sys.executable, "-m", "torch.distributed.run",
+                            "--standalone", "--nproc_per_node", str(nproc),
+                            str(root / "chip_smoke.py"), "--mesh-cli",
+                            str(out_dir), "--config", str(cfg_path),
+                            "--model_path", str(work / name),
+                            "--disable_tb", *argv]], env, 900)
+            seconds = time.perf_counter() - t0
+            ranks = []
+            for r in range(nproc):
+                with open(out_dir / f"rank{r}.json") as f:
+                    ranks.append(json.load(f))
+            return ranks, seconds, outs[0]
+
+        def check(name, ranks, n_its):
+            for r in ranks:
+                _require(r["rc"] == 0 and r["finite"],
+                         f"mesh CLI {name} rank {r['rank']}: rc {r['rc']}, "
+                         f"finite {r['finite']}")
+                _require(r["iterations"] == n_its,
+                         f"mesh CLI {name}: {r['iterations']} iterations")
+                _require(r["widened_or_capped"],
+                         f"mesh CLI {name}: an overflow was not "
+                         f"recalibrated: {r['overflows']}")
+                ev = r["eval_renders"] if r["rank"] == 0 else 0
+                want = (n_its + ev, n_its, 0, 0)
+                _require(tuple(r["launches"][:4]) == want,
+                         f"mesh CLI {name} rank {r['rank']}: launched "
+                         f"{r['launches']}, expected {want}")
+                for i, n in enumerate(r["launches"]):
+                    launches[i] += n
+
+        r12, s12, log12 = launch("mesh1x2", 2, "--mesh", "1x2",
+                                 "--iterations", str(its),
+                                 "--checkpoint_iterations", str(its))
+        check("1x2", r12, its)
+        _require(all(r["backend"] == "gloo" for r in r12),
+                 f"1x2 backends {[r['backend'] for r in r12]}")
+        _require(len(r12[0]["densify"]) >= 1,
+                 f"mesh CLI 1x2: densify epochs {r12[0]['densify']}")
+        ck = work / "mesh1x2" / f"chkpnt{its}_sharded"
+        _require((ck / "manifest.json").is_file(),
+                 "mesh CLI 1x2: no sharded checkpoint")
+        with open(ck / "manifest.json") as f:
+            man = json.load(f)
+        with open(work / "mesh1x2" / "results_test.json") as f:
+            res12 = json.load(f)[f"ours_{its}"]["all"]
+        _require(math.isfinite(res12["PSNR"]), f"1x2 test PSNR {res12}")
+        r11, s11, log11 = launch("resume1x1", 1, "--mesh", "1x1",
+                                 "--start_checkpoint", str(ck),
+                                 "--iterations", str(its + resume_its))
+        check("resume 1x1", r11, resume_its)
+        _require(r11[0]["backend"] == "nccl",
+                 f"1x1 backend {r11[0]['backend']}")
+        with open(work / "resume1x1" / "results_test.json") as f:
+            res11 = json.load(f)[f"ours_{its + resume_its}"]["all"]
+        _require(math.isfinite(res11["PSNR"]), f"resume test PSNR {res11}")
+        rep = {"mesh1x2": {"iterations": its, "seconds": s12,
+                           "ranks": r12, "checkpoint_manifest": man,
+                           "test_psnr": res12["PSNR"],
+                           "test_ssim": res12["SSIM"]},
+               "resume1x1": {"iterations": resume_its, "seconds": s11,
+                             "ranks": r11, "test_psnr": res11["PSNR"],
+                             "test_ssim": res11["SSIM"]},
+               "phase10_test_psnr": info["test_psnr"]}
+        print(f"mesh: train CLI --mesh 1x2 (gloo, one card): {its} "
+              f"iterations at {r12[0]['iterations_per_s']:.2f} it/s, "
+              f"densify epochs {len(r12[0]['densify'])}, overflows "
+              f"{len(r12[0]['overflows'])}, test PSNR {res12['PSNR']:.3f} "
+              f"(phase 10 coarse {info['test_psnr']:.3f}), {s12:.1f} s; "
+              f"resume at --mesh 1x1 (nccl) {resume_its} iterations from "
+              f"capacity {man['capacity']}: test PSNR {res11['PSNR']:.3f}, "
+              f"{s11:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rep, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2436,6 +2818,8 @@ def main() -> int:
     # pipeline on its dataset ---------------------------------------------
     t11, t12 = [], []
 
+    t13 = []
+
     def serve_cli_and_chunks(coarse, surfel, info):
         t0 = time.perf_counter()
         out11 = _serve_cli(coarse, surfel, info, ALL, dev)
@@ -2443,12 +2827,17 @@ def main() -> int:
         t0 = time.perf_counter()
         out12 = _chunks(root, info, ALL, dev)
         t12.append(time.perf_counter() - t0)
-        return out11, out12
+        t0 = time.perf_counter()
+        out13 = _mesh_cli(root, info, ALL, dev)
+        t13.append(time.perf_counter() - t0)
+        return out11, out12, out13
 
     t_cli = time.perf_counter()
-    cli10, ((rep11, launches11), (rep12, launches12)) = _train_cli(
+    cli10, ((rep11, launches11), (rep12, launches12),
+            (rep13_cli, launches13_cli)) = _train_cli(
         root, ALL, dev, then=serve_cli_and_chunks)
-    cli10["seconds"] = time.perf_counter() - t_cli - t11[0] - t12[0]
+    cli10["seconds"] = (time.perf_counter() - t_cli - t11[0] - t12[0]
+                        - t13[0])
     c10 = cli10["coarse"]
     print(f"train CLI: {c10['iterations']} coarse iterations at "
           f"{c10['iterations_per_s']:.2f} it/s (p50 "
@@ -2476,11 +2865,20 @@ def main() -> int:
           + f" it/s), merge {m12['rows_merged']} rows, merged PSNR "
           f"{m12['test_psnr']:.3f}; {t12[0]:.1f} s", flush=True)
 
-    # 13. report -------------------------------------------------------------
+    # 13. the mesh: the sharded step at 1x1 (NCCL), 1x2 and 2x1 (gloo, two
+    # ranks on this card); the train CLI's run above ----------------------
+    t0 = time.perf_counter()
+    rep13, launches13 = _mesh_steps(root, ALL, dev)
+    t13.append(time.perf_counter() - t0)
+    launches13 = tuple(a + b for a, b in zip(launches13, launches13_cli))
+    print(f"mesh: {t13[0] + t13[1]:.1f} s (train CLI {t13[0]:.1f} s, "
+          f"steps {t13[1]:.1f} s)", flush=True)
+
+    # 14. report -------------------------------------------------------------
     paths = {"serve_3dgs": sv["launches"], "train_3dgs": tr["launches"],
              "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"],
              "train_cli": cli10["launches"], "serve_cli": launches11,
-             "chunks": launches12}
+             "chunks": launches12, "mesh": launches13}
 
     def launches(i):
         return {p: n[i] for p, n in paths.items()}
@@ -2536,6 +2934,13 @@ def main() -> int:
                  "evaluation (cuda)", "card": card, "seconds": t12[0],
         "launches": dict(zip(("K1", "K2", "K3", "K4"), launches12[:4])),
         **rep12}))
+    print(json.dumps({
+        "slice": "mesh: flagship 1920x1088 step at 1x1 (nccl), 1x2 and 2x1 "
+                 "(gloo, two ranks on one card); train CLI flagship512 "
+                 "--mesh 1x2 (gloo) -> resume --mesh 1x1 (nccl) (cuda)",
+        "card": card, "seconds": t13[0] + t13[1],
+        "launches": dict(zip(("K1", "K2", "K3", "K4"), launches13[:4])),
+        "steps": rep13, "train_cli": rep13_cli}))
     print(json.dumps({"slice": "tools T1-T3 (cuda)", "card": card,
                       "seconds": tools_s,
                       "T1_ms": t1_times, "T1_equal_l_sweep": t1_sweep,
@@ -2685,4 +3090,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-cli"]:
+        sys.exit(_mesh_cli_worker(*sys.argv[2:]))
     sys.exit(main())

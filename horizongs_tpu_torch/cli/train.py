@@ -13,10 +13,16 @@ cfg_args and a copy of this package's source under backup/.
 iteration 20 into <model_path>/profile/, and `--detect_anomaly` turns on
 `torch.autograd.set_detect_anomaly` (the reference's `train.py:760`).
 
-Not ported yet, each refused with an error naming its queue of
-ROADMAP.md: the multi-device options (`--mesh`, `--band_cap`,
-`--balanced_bands`, `--uniform_bands`, `--no_balanced_batches`,
-`--checkpoint_format sharded`; queue 3).
+Several ranks train one scene over a data x model mesh (`--mesh DxM`,
+`parallel/step.py`), one process a rank, launched with
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m horizongs_tpu_torch.cli.train --mesh DxM --config X.yaml ...
+
+Each rank takes `cuda:(LOCAL_RANK % cards)`; the backend is NCCL when every
+rank has a card of its own and gloo when ranks share one or run on the CPU
+(`--device cpu`). Rank 0 alone writes the run's files. Checkpoints are
+sharded directories under a mesh unless `--checkpoint_format npz`.
 """
 from __future__ import annotations
 
@@ -24,14 +30,6 @@ import argparse
 import json
 import os
 import shutil
-
-# options of the JAX CLI not ported yet -> the ROADMAP.md queue that
-# brings them; the flags among them take no value
-_NOT_PORTED = {
-    "mesh": 3, "band_cap": 3, "balanced_bands": 3, "uniform_bands": 3,
-    "no_balanced_batches": 3,
-}
-_FLAGS = ("balanced_bands", "uniform_bands", "no_balanced_batches")
 
 
 def main(argv=None):
@@ -72,65 +70,67 @@ def main(argv=None):
                         help="torch.autograd.set_detect_anomaly: the "
                         "backward names the forward op behind a NaN (the "
                         "reference's train.py:760; slow, for debugging)")
-    parser.add_argument("--checkpoint_format", default="npz",
+    parser.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                        help="train over a data x model mesh of the "
+                        "launched ranks, e.g. '1x2' (cameras data-parallel "
+                        "x anchor rows and image bands), or 'auto'")
+    parser.add_argument("--band_cap", type=int, default=None,
+                        help="record slots per (source rank, band) of the "
+                        "band exchange (default: calibrated on sample "
+                        "views; an overflow is counted and recalibrated)")
+    parser.add_argument("--balanced_bands", action="store_true",
+                        default=None,
+                        help="cut the bands at equal routed-record "
+                        "quantiles of sample views instead of uniformly")
+    parser.add_argument("--uniform_bands", action="store_true",
+                        help="uniform bands (overrides --balanced_bands)")
+    parser.add_argument("--no_balanced_batches", action="store_true",
+                        help="fill each data-parallel batch at random "
+                        "instead of with views of the nearest cost")
+    parser.add_argument("--checkpoint_format", default=None,
                         choices=["npz", "sharded"],
-                        help="npz (one file); sharded is not ported yet "
-                        "(ROADMAP queue 3)")
-    for name, queue in _NOT_PORTED.items():
-        kw = (dict(action="store_true") if name in _FLAGS
-              else dict(default=None))
-        parser.add_argument(f"--{name}", help=f"not ported yet (ROADMAP "
-                            f"queue {queue})", **kw)
+                        help="npz (one file, gathered) or sharded (a "
+                        "directory, each rank its rows); sharded under "
+                        "--mesh, npz otherwise")
     args = parser.parse_args(argv)
-    refused = [f"--{n} (ROADMAP.md queue {q})"
-               for n, q in _NOT_PORTED.items()
-               if getattr(args, n) not in (None, False, "0")]
-    if args.checkpoint_format == "sharded":
-        refused.append("--checkpoint_format sharded (ROADMAP.md queue 3)")
-    if refused:
-        raise NotImplementedError(
-            "not ported to horizongs_tpu_torch yet: " + ", ".join(refused))
 
     import torch
-    import yaml
+    import torch.distributed as dist
 
     from horizongs_tpu_torch.cli.common import get_logger, load_config
-    from horizongs_tpu_torch.config import load_yaml
     from horizongs_tpu_torch.data.scene import Scene
     from horizongs_tpu_torch.device import resolve_device
+    from horizongs_tpu_torch.parallel.mesh import (
+        maybe_init_distributed, parse_mesh_spec)
     from horizongs_tpu_torch.train.evaluate import (
         evaluate_sets, lpips_fn_or_none, render_set)
     from horizongs_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
+    # the process group first: the mesh's groups and every collective need
+    # it, and the rank decides which process writes files
+    started = False
+    if args.mesh:
+        started = not dist.is_initialized()
+        maybe_init_distributed(device=args.device)
+    mesh = parse_mesh_spec(args.mesh, device=args.device)
+    main_rank = mesh is None or mesh.is_main
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    if args.checkpoint_format is None:
+        args.checkpoint_format = "sharded" if mesh is not None else "npz"
     lp, op, pp, cfg = load_config(args.config, args.model_path)
     if args.source_path is not None:
         lp.source_path = args.source_path
     if args.iterations is not None:
         op.iterations = args.iterations
-    logger = get_logger("train", lp.model_path)
-    os.makedirs(lp.model_path, exist_ok=True)
-    # the RESOLVED config, so that later runs on this directory see the
-    # command line's overrides
-    raw = load_yaml(args.config)
-    raw.setdefault("model_params", {})["source_path"] = lp.source_path
-    raw["model_params"]["model_path"] = lp.model_path
-    if args.iterations is not None:
-        raw.setdefault("optim_params", {})["iterations"] = op.iterations
-    with open(os.path.join(lp.model_path, "config.yaml"), "w") as f:
-        yaml.safe_dump(raw, f, sort_keys=False)
-    with open(os.path.join(lp.model_path, "cfg_args"), "w") as f:
-        f.write(str(vars(lp)))
-    # source snapshot for debugging afterwards (`saveRuntimeCode`,
-    # reference `train.py:60-81,735`)
-    pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    dst = os.path.join(lp.model_path, "backup", "horizongs_tpu_torch")
-    if not os.path.exists(dst):
-        shutil.copytree(pkg_dir, dst,
-                        ignore=shutil.ignore_patterns("__pycache__"))
+    logger = get_logger("train", lp.model_path if main_rank else None)
+    if mesh is not None:
+        logger.info(f"training mesh: data={mesh.shape['data']} x "
+                    f"model={mesh.shape['model']}, {mesh}")
+    if main_rank:
+        _write_run_files(args, lp, op)
 
     tb_writer = None
-    if not args.disable_tb:
+    if not args.disable_tb and main_rank:
         try:
             from torch.utils.tensorboard import SummaryWriter
             tb_writer = SummaryWriter(lp.model_path)
@@ -138,12 +138,18 @@ def main(argv=None):
             logger.info(f"tensorboard unavailable: {e}")
 
     scene = Scene(lp, cfg, weed_ratio=pp.weed_ratio, logger=logger,
-                  seed=args.seed, device=device)
+                  seed=args.seed, device=device, write_files=main_rank)
     trainer = Trainer(scene.cfg, op, pp, scene, logger=logger,
                       rasterizer=args.rasterizer, seed=args.seed,
                       tb_writer=tb_writer, viewer_port=args.viewer_port,
                       profile_steps=(20, args.profile) if args.profile
-                      else None)
+                      else None,
+                      mesh=mesh, band_cap=args.band_cap,
+                      checkpoint_format=args.checkpoint_format,
+                      balanced_bands=(False if args.uniform_bands
+                                      else args.balanced_bands),
+                      balanced_batches=(False if args.no_balanced_batches
+                                        else None))
     iterations = op.iterations
     save_iters = set(args.save_iterations
                      if args.save_iterations is not None else [iterations])
@@ -165,12 +171,13 @@ def main(argv=None):
     if tb_writer is not None:
         tb_writer.close()   # flush buffered scalars
 
-    if not args.skip_eval:
+    host = trainer._host_state() if not args.skip_eval else None
+    if not args.skip_eval and main_rank:
         logger.info("Rendering + evaluating test set")
         cams = scene.get_test_cameras() or scene.get_train_cameras()
         renders, gts, counts, times, types, subsets = render_set(
             lp.model_path, "test", iterations, cams, scene.cfg, scene,
-            trainer.state, rasterizer=trainer.rasterizer,
+            host, rasterizer=trainer.rasterizer,
             # reference render_sets: prefilter off iff no_prefilter_step
             # was used in training (`train.py:478-484`)
             add_prefilter=not (int(getattr(pp, "no_prefilter_step", 0)
@@ -179,7 +186,36 @@ def main(argv=None):
                                 types, lpips_model=lpips_fn_or_none(device),
                                 subsets=subsets, device=device)
         logger.info(json.dumps(results, indent=2))
+    if mesh is not None and dist.is_initialized():
+        dist.barrier()
+        if started:
+            dist.destroy_process_group()
     return 0
+
+
+def _write_run_files(args, lp, op) -> None:
+    """The run directory's resolved config.yaml (the command line's
+    overrides included, for later runs on the directory), cfg_args and a
+    copy of this package's source under backup/ (`saveRuntimeCode`,
+    reference `train.py:60-81,735`)."""
+    import yaml
+
+    from horizongs_tpu_torch.config import load_yaml
+    os.makedirs(lp.model_path, exist_ok=True)
+    raw = load_yaml(args.config)
+    raw.setdefault("model_params", {})["source_path"] = lp.source_path
+    raw["model_params"]["model_path"] = lp.model_path
+    if args.iterations is not None:
+        raw.setdefault("optim_params", {})["iterations"] = op.iterations
+    with open(os.path.join(lp.model_path, "config.yaml"), "w") as f:
+        yaml.safe_dump(raw, f, sort_keys=False)
+    with open(os.path.join(lp.model_path, "cfg_args"), "w") as f:
+        f.write(str(vars(lp)))
+    pkg_dir = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dst = os.path.join(lp.model_path, "backup", "horizongs_tpu_torch")
+    if not os.path.exists(dst):
+        shutil.copytree(pkg_dir, dst,
+                        ignore=shutil.ignore_patterns("__pycache__"))
 
 
 if __name__ == "__main__":

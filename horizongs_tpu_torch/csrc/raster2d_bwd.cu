@@ -15,7 +15,8 @@
 // The function (the TPU kernel's algebra, raster2d.py:355-439), for pixel p
 // of tile t walking the segment from its n_contrib - 1 (K3's record) down
 // to 0, with the intersection recomputed as K3 computed it
-// (raster2d_common.cuh) and carrying log T after the surfel, S = dlogT +
+// (raster2d_common.cuh; pixel rows from row0, as in K3) and carrying log T
+// after the surfel, S = dlogT +
 // sum over later surfels of w * dL/dw, and the strict suffixes A_suf =
 // sum of later w and D_suf = sum of later w * z:
 //   log T before = log T after - log1p(-alpha),  w = alpha * T before,
@@ -93,7 +94,7 @@ raster2d_bwd_kernel(const float* __restrict__ fields,
                     const float* __restrict__ acc,
                     const float* __restrict__ aux,
                     const int* __restrict__ rec,
-                    int n_tiles_x,
+                    int n_tiles_x, int row0,
                     float* __restrict__ grad_fields) {
   __shared__ float s_f[kBatch][kFields];
   __shared__ float s_sum[kBatch][kFields];   // warp totals per surfel
@@ -114,7 +115,7 @@ raster2d_bwd_kernel(const float* __restrict__ fields,
   const int field = lane_field<kFields>(lane);
   const int start = tile_starts[t];
   const float x0 = static_cast<float>((t % n_tiles_x) * kTileW);
-  const float y0 = static_cast<float>((t / n_tiles_x) * kTileH);
+  const float y0 = static_cast<float>((t / n_tiles_x) * kTileH + row0);
 
   if (tid == 0) s_walk = 0;
   for (int e = tid; e < kBatch * kFields; e += kThreads)
@@ -302,12 +303,12 @@ extern "C" int raster2d_bwd(const float* fields, const int* gauss_id,
                             const int* tile_starts, const float* d_acc,
                             const float* d_aux, const float* acc,
                             const float* aux, const int* rec, int n_tiles,
-                            int n_tiles_x, float* grad_fields,
+                            int n_tiles_x, int row0, float* grad_fields,
                             void* stream) {
   raster2d_bwd_kernel<<<n_tiles, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       fields, gauss_id, tile_starts, d_acc, d_aux, acc, aux, rec, n_tiles_x,
-      grad_fields);
+      row0, grad_fields);
   return static_cast<int>(cudaGetLastError());
 }
 

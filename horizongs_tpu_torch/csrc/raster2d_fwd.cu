@@ -13,6 +13,10 @@
 // and log T += log1p(-alpha). The median depth is z of the first surfel
 // after which log T < log(0.5); its position in the segment is recorded.
 //
+// Pixel rows start at row0 (0 for a view; a band of the view composited
+// on its own passes its first row, so its pixels keep the view's
+// coordinates and the intersection rounds as in the view).
+//
 // Outputs (n_tiles, ., 512) row-major per tile: acc 7 rows (r, g, b, nx,
 // ny, nz, A), aux 4 rows (final log T, D, distortion, median depth), rec 2
 // int32 rows (n_contrib, median position or -1). The TPU kernel's aux also
@@ -98,7 +102,7 @@ __global__ void __launch_bounds__(kThreads, 4)
 raster2d_fwd_kernel(const float* __restrict__ fields,
                     const int* __restrict__ gauss_id,
                     const int* __restrict__ tile_starts,
-                    int n_tiles_x,
+                    int n_tiles_x, int row0,
                     float* __restrict__ acc,
                     float* __restrict__ aux,
                     int* __restrict__ rec) {
@@ -117,7 +121,7 @@ raster2d_fwd_kernel(const float* __restrict__ fields,
   const int count = tile_starts[t + 1] - start;
   const int n_batches = (count + kBatch - 1) / kBatch;
   const float x0 = static_cast<float>((t % n_tiles_x) * kTileW);
-  const float y0 = static_cast<float>((t / n_tiles_x) * kTileH);
+  const float y0 = static_cast<float>((t / n_tiles_x) * kTileH + row0);
 
   if (n_batches > 0)
     stage(s_f[0], fields, gauss_id + start, min(kBatch, count), tid);
@@ -237,11 +241,11 @@ raster2d_fwd_kernel(const float* __restrict__ fields,
 // 512) and aux (n_tiles, 4, 512) float32, rec (n_tiles, 2, 512) int32.
 extern "C" int raster2d_fwd(const float* fields, const int* gauss_id,
                             const int* tile_starts, int n_tiles,
-                            int n_tiles_x, float* acc, float* aux, int* rec,
-                            void* stream) {
+                            int n_tiles_x, int row0, float* acc, float* aux,
+                            int* rec, void* stream) {
   raster2d_fwd_kernel<<<n_tiles, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      fields, gauss_id, tile_starts, n_tiles_x, acc, aux, rec);
+      fields, gauss_id, tile_starts, n_tiles_x, row0, acc, aux, rec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,7 @@ copies, `create_from_pretrained`), or from a saved
 iteration; with `explicit=True` a saved iteration loads as the baked
 explicit model (`explicit_state`, no training state). `save` bakes a
 view-independent SH model to point_cloud_explicit.ply beside the anchors.
+`write_files=False` writes nothing (the ranks of a mesh other than 0).
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ class Scene:
     def __init__(self, lp, cfg: ModelConfig, load_iteration=None,
                  explicit: bool = False,
                  weed_ratio: float = 0.0, logger=None, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, write_files: bool = True):
         self.lp = lp
         self.cfg = cfg
         self.device = dev = resolve_device(device)
@@ -99,7 +100,7 @@ class Scene:
 
         ratio = max(int(getattr(lp, "ratio", 1)), 1)
         pts = scene_info.point_cloud.points[::ratio]
-        if not self.loaded_iter and self.model_path:
+        if not self.loaded_iter and self.model_path and write_files:
             os.makedirs(self.model_path, exist_ok=True)
             log(f"Train cameras: {len(scene_info.train_cameras)}")
             log(f"Test cameras: {len(scene_info.test_cameras)}")

@@ -21,11 +21,17 @@ reads the other's files.
     extra_level, n, opt/mu/..., opt/nu/..., opt/t, stats/...) plus
     `__iteration__`; no pickle.
 
-The JAX package's orbax sharded checkpoints are not ported yet (ROADMAP
-queue 3).
+  * A sharded checkpoint (`save_sharded_checkpoint`) is a directory,
+    `chkpnt{it}_sharded/`, in the port's own format: each "model" index of
+    the mesh writes its rows of every per-anchor leaf (`rows_{m}.npz`, no
+    gather), rank 0 the replicated leaves (`replicated.npz`) and last a
+    `manifest.json` (mesh shape, capacity, iteration, the keys). The keys
+    are the npz checkpoint's, so a sharded checkpoint restores at any mesh
+    shape. The JAX package's orbax directories are not read.
 """
 from __future__ import annotations
 
+import json
 import os
 import re
 from types import SimpleNamespace
@@ -45,6 +51,7 @@ from horizongs_tpu_torch.io.plyio import read_ply, write_ply
 from horizongs_tpu_torch.models.anchors import AnchorState, round_capacity
 from horizongs_tpu_torch.models.config import ModelConfig
 from horizongs_tpu_torch.models.mlp import MlpDecoders
+from horizongs_tpu_torch.train.densify import TABLES
 from horizongs_tpu_torch.train.step import DensifyStats, TrainState
 
 # the JAX package's `TrainableParams` fields, in its order
@@ -246,19 +253,23 @@ def load_mlp_checkpoints(dirpath: str,
                            appearance, device=device)
 
 
+def _flat_state(state: TrainState) -> dict:
+    """The state's leaves under the npz checkpoint's flattened keys."""
+    t = train_state_to_numpy(state)
+    return _flatten({"params": t["params"], "rotation": t["rotation"],
+                     "level": t["level"], "extra_level": t["extra_level"],
+                     "n": np.asarray(t["n"], np.int32),
+                     "opt": {"mu": t["mu"], "nu": t["nu"],
+                             "t": np.asarray(t["t"], np.int32)},
+                     "stats": t["stats"]})
+
+
 def save_train_checkpoint(path: str, state: TrainState,
                           iteration: int) -> None:
     """The whole training state (params, moments, statistics, counters)
     in one npz under the JAX package's keys, plus `__iteration__`."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    t = train_state_to_numpy(state)
-    tree = {"params": t["params"], "rotation": t["rotation"],
-            "level": t["level"], "extra_level": t["extra_level"],
-            "n": np.asarray(t["n"], np.int32),
-            "opt": {"mu": t["mu"], "nu": t["nu"],
-                    "t": np.asarray(t["t"], np.int32)},
-            "stats": t["stats"]}
-    flat = _flatten(tree)
+    flat = _flat_state(state)
     flat["__iteration__"] = np.asarray(iteration)
     np.savez(path, **flat)
 
@@ -286,6 +297,11 @@ def load_train_checkpoint(path: str, device: DeviceLike = None
     """A training checkpoint of either package -> (state, iteration), at
     the capacity it was saved with."""
     z = np.load(path)
+    return _state_from_flat(z, device), int(z["__iteration__"])
+
+
+def _state_from_flat(z, device: DeviceLike) -> TrainState:
+    """A mapping of the npz checkpoint's keys (with `.files`) -> state."""
     ts = SimpleNamespace(
         params=_params_ns(_unflatten(z, "params/")),
         rotation=z["rotation"], level=z["level"],
@@ -295,7 +311,98 @@ def load_train_checkpoint(path: str, device: DeviceLike = None
                             t=z["opt/t"]),
         stats=SimpleNamespace(**{f: z[f"stats/{f}"]
                                  for f in DensifyStats._fields}))
-    return train_state_from_numpy(ts, device=device), int(z["__iteration__"])
+    return train_state_from_numpy(ts, device=device)
+
+
+# ---------------------------------------------------------------------------
+# sharded checkpoints: one directory, each "model" index writes its rows
+# ---------------------------------------------------------------------------
+
+_ROW_LEAVES = ("rotation", "level", "extra_level")
+_MANIFEST = "manifest.json"
+
+
+def _is_row_key(key: str) -> bool:
+    """Whether a flattened key is a per-anchor (or per-offset) leaf."""
+    return (key in _ROW_LEAVES or key.startswith("stats/")
+            or key.split("/")[-1] in TABLES)
+
+
+class _Flat(dict):
+    """A dict with the `.files` of an npz."""
+
+    @property
+    def files(self):
+        return list(self)
+
+
+def save_sharded_checkpoint(path: str, state: TrainState, iteration: int,
+                            mesh) -> None:
+    """The state of a mesh (`parallel/step.shard_state`), each rank at
+    data index 0 writing its own rows (`rows_{m}.npz`) and rank 0 the
+    replicated leaves and the manifest; every rank of the mesh must call
+    it. `path` is a directory."""
+    import torch.distributed as dist
+    os.makedirs(path, exist_ok=True)
+    flat = _flat_state(state)
+    rows = {k: v for k, v in flat.items() if _is_row_key(k)}
+    n_model = mesh.shape["model"]
+    names = [f"rows_{m:04d}.npz" for m in range(n_model)]
+    if mesh.d == 0:
+        np.savez(os.path.join(path, names[mesh.m]), **rows)
+    if mesh.is_main:
+        np.savez(os.path.join(path, "replicated.npz"),
+                 **{k: v for k, v in flat.items() if k not in rows})
+    if dist.is_initialized():
+        dist.barrier(group=mesh.group("world"))
+    if mesh.is_main:
+        manifest = {
+            "format": "horizongs_tpu_torch sharded checkpoint 1",
+            "mesh": [mesh.shape["data"], n_model],
+            "capacity": int(state.params.anchor.shape[0]) * n_model,
+            "iteration": int(iteration), "n": int(state.n),
+            "row_files": names, "row_keys": sorted(rows),
+            "replicated_keys": sorted(k for k in flat if k not in rows)}
+        tmp = os.path.join(path, _MANIFEST + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=1)
+        os.replace(tmp, os.path.join(path, _MANIFEST))
+    if dist.is_initialized():
+        dist.barrier(group=mesh.group("world"))
+
+
+def sharded_checkpoint_capacity(path: str) -> int:
+    """The anchor capacity a sharded checkpoint holds, from its manifest
+    (a resume decides from it whether the state must be re-padded)."""
+    with open(os.path.join(path, _MANIFEST)) as f:
+        return int(json.load(f)["capacity"])
+
+
+def load_sharded_checkpoint(path: str, device: DeviceLike = None,
+                            mesh=None) -> Tuple[TrainState, int]:
+    """A sharded checkpoint -> (state, iteration) at the capacity it was
+    saved with, whatever mesh saved it: the whole state, or with `mesh`
+    this rank's rows of it (`parallel/step.shard_state`'s slice; the
+    capacity must then divide the mesh's "model" axis — re-pad the whole
+    state otherwise, as `Trainer.restore` does)."""
+    with open(os.path.join(path, _MANIFEST)) as f:
+        man = json.load(f)
+    flat = _Flat(np.load(os.path.join(path, "replicated.npz")))
+    shards = [np.load(os.path.join(path, n)) for n in man["row_files"]]
+    C = int(man["capacity"])
+    lo, hi = 0, C
+    if mesh is not None:
+        n_model = mesh.shape["model"]
+        if C % n_model:
+            raise ValueError(f"checkpoint capacity {C} does not divide "
+                             f"model={n_model}: load it whole and pad it")
+        c = C // n_model
+        lo, hi = mesh.m * c, (mesh.m + 1) * c
+    for key in man["row_keys"]:
+        full = np.concatenate([z[key] for z in shards])
+        per = full.shape[0] // C
+        flat[key] = full[lo * per:hi * per]
+    return _state_from_flat(flat, device), int(man["iteration"])
 
 
 def search_max_iteration(point_cloud_dir: str) -> int:

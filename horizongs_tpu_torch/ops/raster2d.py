@@ -105,10 +105,10 @@ FLT_MAX = torch.finfo(torch.float32).max
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 KERNEL_2D = CudaKernel("raster2d_fwd",
-                       [_VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _VP])
+                       [_VP, _VP, _VP, _INT, _INT, _INT, _VP, _VP, _VP, _VP])
 KERNEL_2D_BWD = CudaKernel("raster2d_bwd",
                            [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
-                            _INT, _VP, _VP])
+                            _INT, _INT, _VP, _VP])
 _OCCUPANCY = {name: CudaKernel(f"{name}_occupancy",
                                [ctypes.POINTER(_INT)], source=name)
               for name in ("raster2d_fwd", "raster2d_bwd")}
@@ -147,12 +147,13 @@ def skip_threshold(op: torch.Tensor) -> torch.Tensor:
 
 
 def segment_reject(f: torch.Tensor, t: int, n_tiles_x: int,
-                   lx: torch.Tensor, ly: torch.Tensor) -> torch.Tensor:
+                   lx: torch.Tensor, ly: torch.Tensor,
+                   row0: int = 0) -> torch.Tensor:
     """(P, count) bool: the pairs of tile t's pixels and the surfels f
     (count, 18) that the kernels' division-free test skips, in their order
     of rounded operations: rho2d > thr and kx² + ky² > thr·kz'² with a
     finite left side. A skipped pair has alpha = 0."""
-    h = _hit_terms(f, t, n_tiles_x, lx, ly)
+    h = _hit_terms(f, t, n_tiles_x, lx, ly, row0)
     kx, ky, kz = h["kx"], h["ky"], h["kz"]
     thr = skip_threshold(f[:, 11])[None, :]
     kzs = torch.where(torch.abs(kz) > KZ_EPS, kz, torch.full_like(kz, KZ_EPS))
@@ -200,27 +201,29 @@ def support_box(f: torch.Tensor) -> torch.Tensor:
     return torch.where((thr < 0)[:, None], empty, box)
 
 
-def warp_cull(f: torch.Tensor, t: int, n_tiles_x: int) -> torch.Tensor:
+def warp_cull(f: torch.Tensor, t: int, n_tiles_x: int,
+              row0: int = 0) -> torch.Tensor:
     """(WARPS, count) bool: warp w of tile t's block skips surfel j of f
     (count, 18) outright, its pixel centres all outside the support box."""
     box = support_box(f)
     w = torch.arange(WARPS, device=f.device)
     xl = (float((t % n_tiles_x) * TILE_W) + (w % 4 * BLOCK_PX).float()
           + 0.5)[:, None]
-    yl = (float((t // n_tiles_x) * TILE_H) + (w // 4 * BLOCK_PX).float()
-          + 0.5)[:, None]
+    yl = (float((t // n_tiles_x) * TILE_H + row0)
+          + (w // 4 * BLOCK_PX).float() + 0.5)[:, None]
     xh, yh = xl + (BLOCK_PX - 1), yl + (BLOCK_PX - 1)
     return ((box[None, :, 1] < xl) | (box[None, :, 0] > xh)
             | (box[None, :, 3] < yl) | (box[None, :, 2] > yh))
 
 
 def _hit_terms(f: torch.Tensor, t: int, n_tiles_x: int,
-               lx: torch.Tensor, ly: torch.Tensor) -> dict:
+               lx: torch.Tensor, ly: torch.Tensor, row0: int = 0) -> dict:
     """The division-free part of the intersection of tile t's pixels with
     the surfels f (count, 18), each a (P, count) tensor, in the kernels'
-    order of products and sums: X, Y, hu, hv, k = hu x hv, dx, dy, rho2d."""
+    order of products and sums: X, Y, hu, hv, k = hu x hv, dx, dy, rho2d.
+    Pixel rows start at `row0`."""
     X = (lx + float((t % n_tiles_x) * TILE_W))[:, None]
-    Y = (ly + float((t // n_tiles_x) * TILE_H))[:, None]
+    Y = (ly + float((t // n_tiles_x) * TILE_H + row0))[:, None]
     M3x, M3y, M3z = f[None, :, 6], f[None, :, 7], f[None, :, 8]
     hu = (X * M3x - f[None, :, 0], X * M3y - f[None, :, 1],
           X * M3z - f[None, :, 2])
@@ -237,12 +240,13 @@ def _hit_terms(f: torch.Tensor, t: int, n_tiles_x: int,
 
 
 def segment_geometry(f: torch.Tensor, t: int, n_tiles_x: int,
-                     lx: torch.Tensor, ly: torch.Tensor) -> dict:
+                     lx: torch.Tensor, ly: torch.Tensor,
+                     row0: int = 0) -> dict:
     """The ray-splat intersection of tile t's pixels (local centres lx, ly)
     with the surfels f (count, 18) of its segment, each a (P, count) tensor,
     in the kernels' order of products and sums: the alpha cut-offs fall
-    where the kernels' do."""
-    h = _hit_terms(f, t, n_tiles_x, lx, ly)
+    where the kernels' do. Pixel rows start at `row0`."""
+    h = _hit_terms(f, t, n_tiles_x, lx, ly, row0)
     M3x, M3y, M3z = f[None, :, 6], f[None, :, 7], f[None, :, 8]
     kz = h["kz"]
     kz_ok = torch.abs(kz) > KZ_EPS
@@ -270,7 +274,7 @@ def _suffix(x: torch.Tensor) -> torch.Tensor:
 
 def rasterize2d_fwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
                           tile_starts: torch.Tensor, n_tiles_x: int,
-                          n_tiles_y: int):
+                          n_tiles_y: int, row0: int = 0):
     """Plain PyTorch K3, tile by tile: a (P, count) alpha matrix, log T
     before each gaussian as an exclusive cumsum of log1p(-alpha), the w
     mask, and the distortion's prefix sums A, D by cumsum — the dense
@@ -288,7 +292,7 @@ def rasterize2d_fwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
         if e == s:
             continue
         f = fields[gauss_id[s:e].long()]                    # (count, 18)
-        geo = segment_geometry(f, t, n_tiles_x, lx, ly)
+        geo = segment_geometry(f, t, n_tiles_x, lx, ly, row0)
         alpha, z = geo["alpha"], geo["z"]
         lam = torch.log1p(-alpha)
         incl = torch.cumsum(lam, dim=1)
@@ -319,9 +323,10 @@ def rasterize2d_fwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
 
 def rasterize2d_fwd(fields: torch.Tensor, gauss_id: torch.Tensor,
                     tile_starts: torch.Tensor, n_tiles_x: int,
-                    n_tiles_y: int):
+                    n_tiles_y: int, row0: int = 0):
     """K3 (see the module docstring): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Returns (acc, aux, rec). `gauss_id`
+    plain version for CPU tensors. Returns (acc, aux, rec). Pixel rows
+    start at `row0` (a band of a view keeps the view's coordinates). `gauss_id`
     values and the monotonicity of `tile_starts` are the binning's
     guarantee and are not checked on the device."""
     dev = fields.device
@@ -329,7 +334,7 @@ def rasterize2d_fwd(fields: torch.Tensor, gauss_id: torch.Tensor,
     _check_segments(fields, gauss_id, tile_starts, n_tiles, N_FIELDS)
     if dev.type == "cpu":
         return rasterize2d_fwd_plain(fields, gauss_id, tile_starts,
-                                     n_tiles_x, n_tiles_y)
+                                     n_tiles_x, n_tiles_y, row0)
     if fields.data_ptr() % 8:
         raise ValueError("K3 copies fields in 8-byte pieces: its storage "
                          "must be 8-byte aligned")
@@ -342,8 +347,8 @@ def rasterize2d_fwd(fields: torch.Tensor, gauss_id: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL_2D.launch(fields.data_ptr(), gauss_id.data_ptr(),
                          tile_starts.data_ptr(), n_tiles, n_tiles_x,
-                         acc.data_ptr(), aux.data_ptr(), rec.data_ptr(),
-                         stream)
+                         int(row0), acc.data_ptr(), aux.data_ptr(),
+                         rec.data_ptr(), stream)
     return acc, aux, rec
 
 
@@ -351,7 +356,8 @@ def rasterize2d_bwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
                           tile_starts: torch.Tensor, d_acc: torch.Tensor,
                           d_aux: torch.Tensor, acc: torch.Tensor,
                           aux: torch.Tensor, rec: torch.Tensor,
-                          n_tiles_x: int, n_tiles_y: int) -> torch.Tensor:
+                          n_tiles_x: int, n_tiles_y: int,
+                          row0: int = 0) -> torch.Tensor:
     """Plain PyTorch K4, tile by tile, in closed form (no autograd): each
     pixel's log T before every gaussian it walked is rebuilt from its final
     log T by a suffix sum of log1p(-alpha) over [j, n_contrib); S_after and
@@ -370,7 +376,7 @@ def rasterize2d_bwd_plain(fields: torch.Tensor, gauss_id: torch.Tensor,
             continue
         ids = gauss_id[s:e].long()
         f = fields[ids]                                      # (count, 18)
-        geo = segment_geometry(f, t, n_tiles_x, lx, ly)
+        geo = segment_geometry(f, t, n_tiles_x, lx, ly, row0)
         pos = torch.arange(count, device=dev)[None, :]
         zero = torch.zeros_like(geo["alpha"])
         alpha = torch.where(pos < rec[t, 0][:, None], geo["alpha"], zero)
@@ -439,9 +445,10 @@ def rasterize2d_bwd(fields: torch.Tensor, gauss_id: torch.Tensor,
                     tile_starts: torch.Tensor, d_acc: torch.Tensor,
                     d_aux: torch.Tensor, acc: torch.Tensor, aux: torch.Tensor,
                     rec: torch.Tensor, n_tiles_x: int,
-                    n_tiles_y: int) -> torch.Tensor:
+                    n_tiles_y: int, row0: int = 0) -> torch.Tensor:
     """K4 (see the module docstring): the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Returns grad_fields (N, 18)."""
+    plain version for CPU tensors. Returns grad_fields (N, 18). Pixel rows
+    start at `row0`, as K3's."""
     dev = fields.device
     n_tiles = n_tiles_x * n_tiles_y
     _check_segments(fields, gauss_id, tile_starts, n_tiles, N_FIELDS)
@@ -456,7 +463,7 @@ def rasterize2d_bwd(fields: torch.Tensor, gauss_id: torch.Tensor,
     if dev.type == "cpu":
         return rasterize2d_bwd_plain(fields, gauss_id, tile_starts, d_acc,
                                      d_aux, acc, aux, rec, n_tiles_x,
-                                     n_tiles_y)
+                                     n_tiles_y, row0)
     grad = torch.zeros_like(fields)
     if n_tiles == 0:
         return grad
@@ -466,14 +473,15 @@ def rasterize2d_bwd(fields: torch.Tensor, gauss_id: torch.Tensor,
                              tile_starts.data_ptr(), d_acc.data_ptr(),
                              d_aux.data_ptr(), acc.data_ptr(),
                              aux.data_ptr(), rec.data_ptr(), n_tiles,
-                             n_tiles_x, grad.data_ptr(), stream)
+                             n_tiles_x, int(row0), grad.data_ptr(), stream)
     return grad
 
 
 def records_off_the_boundary(fields: torch.Tensor, gauss_id: torch.Tensor,
                              tile_starts: torch.Tensor, n_tiles_x: int,
                              rec_a: torch.Tensor, logT_a: torch.Tensor,
-                             rec_b: torch.Tensor, logT_b: torch.Tensor):
+                             rec_b: torch.Tensor, logT_b: torch.Tensor,
+                             row0: int = 0):
     """(n_contrib, median) counts of pixels whose records differ between
     two runs of K3 (rec (n_tiles, 2, P), final log T (n_tiles, P)) other
     than at a boundary that rounding can move. Summed in another order, a
@@ -483,7 +491,8 @@ def records_off_the_boundary(fields: torch.Tensor, gauss_id: torch.Tensor,
     gaussian between the two counts may have alpha >= 1/255; where the
     median's position differs, log T after the earlier one must lie within
     1e-4 of log 0.5 and no gaussian between the two (or after the one, if
-    the other run found none) may contribute. (0, 0) means the runs agree."""
+    the other run found none) may contribute. (0, 0) means the runs agree.
+    Pixel rows start at `row0`, as the runs' did."""
     lx, ly = local_pixel_coords(fields.device)
     starts = tile_starts.tolist()
     bad_nc = bad_med = 0
@@ -491,7 +500,7 @@ def records_off_the_boundary(fields: torch.Tensor, gauss_id: torch.Tensor,
         lo, hi = sorted((int(rec_a[t, 0, p]), int(rec_b[t, 0, p])))
         s = starts[t]
         alpha = segment_geometry(fields[gauss_id[s + lo:s + hi].long()], t,
-                                 n_tiles_x, lx, ly)["alpha"][p]
+                                 n_tiles_x, lx, ly, row0)["alpha"][p]
         at_stop = (max(float(logT_a[t, p]), float(logT_b[t, p]))
                    <= LOG_T_EPS + 1e-4)
         bad_nc += int(not at_stop or int((alpha > 0).sum()) > 1)
@@ -502,7 +511,7 @@ def records_off_the_boundary(fields: torch.Tensor, gauss_id: torch.Tensor,
         hi = max(pa, pb) if min(pa, pb) >= 0 else n
         s = starts[t]
         alpha = segment_geometry(fields[gauss_id[s:s + n].long()], t,
-                                 n_tiles_x, lx, ly)["alpha"][p]
+                                 n_tiles_x, lx, ly, row0)["alpha"][p]
         logT_after = torch.cumsum(torch.log1p(-alpha), 0)[lo]
         near = abs(float(logT_after) - LOG_HALF) <= 1e-4
         between = int((alpha[lo + 1:hi] > 0).sum())

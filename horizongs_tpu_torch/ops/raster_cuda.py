@@ -273,18 +273,19 @@ def build_raster_inputs_2dgs(means, quats, scales, opacities, colors,
 class RasterCore2D(torch.autograd.Function):
     """K3 forward, K4 backward, at the (N, 18) field boundary.
 
-    forward(fields, gauss_id, tile_starts, n_tiles_x, n_tiles_y) ->
-    (acc, aux, rec) of `rasterize2d_fwd`; backward takes the cotangents of
-    acc and aux (rec is an integer record with no gradient) and returns
+    forward(fields, gauss_id, tile_starts, n_tiles_x, n_tiles_y, row0=0)
+    -> (acc, aux, rec) of `rasterize2d_fwd`; backward takes the cotangents
+    of acc and aux (rec is an integer record with no gradient) and returns
     dL/dfields from `rasterize2d_bwd` (K4, or its plain version for CPU
-    tensors)."""
+    tensors). `row0` is the first pixel row (a band of a view)."""
 
     @staticmethod
-    def forward(ctx, fields, gauss_id, tile_starts, n_tiles_x, n_tiles_y):
+    def forward(ctx, fields, gauss_id, tile_starts, n_tiles_x, n_tiles_y,
+                row0=0):
         acc, aux, rec = rasterize2d_fwd(fields, gauss_id, tile_starts,
-                                        n_tiles_x, n_tiles_y)
+                                        n_tiles_x, n_tiles_y, row0)
         ctx.save_for_backward(fields, gauss_id, tile_starts, acc, aux, rec)
-        ctx.n_tiles = (n_tiles_x, n_tiles_y)
+        ctx.n_tiles = (n_tiles_x, n_tiles_y, row0)
         ctx.mark_non_differentiable(rec)
         return acc, aux, rec
 
@@ -294,7 +295,7 @@ class RasterCore2D(torch.autograd.Function):
         grad = rasterize2d_bwd(fields, gauss_id, tile_starts,
                                d_acc.contiguous(), d_aux.contiguous(), acc,
                                aux, rec, *ctx.n_tiles)
-        return grad, None, None, None, None
+        return grad, None, None, None, None, None
 
 
 def rasterize_cuda_2dgs(

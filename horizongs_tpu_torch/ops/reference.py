@@ -264,10 +264,13 @@ def render_dense_2dgs(
     return render, alphas, normals, normals_from_depth, distort, median, info
 
 
-def depth_to_normals(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+def depth_to_normals(depth: torch.Tensor, K: torch.Tensor,
+                     row0=0.0) -> torch.Tensor:
     """Camera-space normals of a depth map (H, W) by central differences
     -> (H, W, 3): zero on the border rows and columns, where the cross
-    product vanishes and where the depth is not positive.
+    product vanishes and where the depth is not positive. `row0` is the
+    image row of depth's first row (the band-sharded step evaluates a
+    band of the view, whose pixel rays need the view's coordinates).
 
     The JAX package's `depth_to_normals` in value. Its gradient differs
     where that one's is not finite: it takes the norm as sqrt of Σn², whose
@@ -279,7 +282,7 @@ def depth_to_normals(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     fx, fy = K[0, 0], K[1, 1]
     cx, cy = K[0, 2], K[1, 2]
     xs = torch.arange(W, dtype=depth.dtype, device=depth.device) + 0.5
-    ys = torch.arange(H, dtype=depth.dtype, device=depth.device) + 0.5
+    ys = torch.arange(H, dtype=depth.dtype, device=depth.device) + 0.5 + row0
     px = (xs[None, :] - cx) / fx
     py = (ys[:, None] - cy) / fy
     pts = torch.stack([px * depth, py * depth, depth], dim=-1)  # (H, W, 3)

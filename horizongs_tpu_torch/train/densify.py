@@ -514,3 +514,56 @@ def roll_back(state: TrainState, base: dict, cfg: ModelConfig) -> TrainState:
                            for t in TABLES})
     return state._replace(params=params,
                           rotation=restore(state.rotation, "rotation"))
+
+
+@torch.no_grad()
+def state_checksum(state: TrainState) -> torch.Tensor:
+    """float64 fingerprint of a state's decision outputs: n, capacity, the
+    levels and every table's sum and sum of squares."""
+    p = state.params
+    dev = p.anchor.device
+    parts = [torch.tensor([float(state.n), float(p.anchor.shape[0])],
+                          dtype=torch.float64, device=dev),
+             state.level.double().sum()[None],
+             state.extra_level.double().sum()[None]]
+    for t in TABLES:
+        x = getattr(p, t).detach().double()
+        parts += [x.sum()[None], (x * x).sum()[None]]
+    return torch.cat(parts)
+
+
+@torch.no_grad()
+def run_densify_sharded(cfg: ModelConfig, opt, state: TrainState, mesh,
+                        iteration: int, stage: str = "coarse",
+                        rng: Optional[np.random.Generator] = None,
+                        cam_infos: Optional[np.ndarray] = None,
+                        weed_ratio: float = 0.0,
+                        capacity_block: int = 4096,
+                        report: Optional[dict] = None,
+                        base: Optional[dict] = None) -> TrainState:
+    """A densify epoch of a sharded state (`parallel/step.shard_state`):
+    gather it over "model" onto every rank, run `run_densify` unchanged on
+    each (the decision is deterministic: the same statistics and the same
+    seeded `rng` on every rank), check with one all_reduce of a checksum
+    that every rank reached the same n, levels and tables, and return the
+    rank's slice of the result. `capacity_block` must be a multiple of the
+    "model" axis (the trainer passes lcm(4096, model)). `base`: the fine
+    stage's rollback copies, restored before the epoch."""
+    from horizongs_tpu_torch.parallel.collectives import pmax
+    from horizongs_tpu_torch.parallel.step import shard_state, unshard_state
+    if capacity_block % mesh.shape["model"]:
+        raise ValueError(f"capacity block {capacity_block} does not divide "
+                         f"model={mesh.shape['model']}")
+    full = unshard_state(state, mesh)
+    if base is not None:
+        full = roll_back(full, base, cfg)
+    new = run_densify(cfg, opt, full, iteration, stage=stage, rng=rng,
+                      cam_infos=cam_infos, weed_ratio=weed_ratio,
+                      capacity_block=capacity_block, report=report)
+    s = state_checksum(new)
+    world = mesh.group("world")
+    if not torch.equal(pmax(s, world), -pmax(-s, world)):
+        raise RuntimeError(f"densify diverged across ranks at iteration "
+                           f"{iteration}: the ranks reached different "
+                           f"n, levels or tables")
+    return shard_state(new, mesh)

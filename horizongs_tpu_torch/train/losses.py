@@ -148,3 +148,85 @@ def assemble_loss(opt, render_pkg: dict, gt_image: torch.Tensor,
     aux["depth_l1"] = ll1depth
     aux["total"] = loss
     return loss, aux
+
+
+def assemble_loss_band(opt, patch_pkg: dict, gt_patch: torch.Tensor,
+                       alpha_mask_patch: torch.Tensor,
+                       invdepth_patch: Optional[torch.Tensor],
+                       depth_mask_patch: Optional[torch.Tensor],
+                       iteration: float, depth_weight: float,
+                       render_mode: str, interior: torch.Tensor,
+                       height: int, width: int):
+    """One band's share of the full-image training loss (the JAX
+    package's `assemble_loss_band`).
+
+    The band-sharded step computes each term on this rank's band only,
+    extended by halo rows so that SSIM windows and depth-normal
+    differences see the real neighbouring rows. Each term is a masked
+    interior sum over the full image's denominator, so the total is
+    `const + Σ_bands contrib` (+ the scale regulariser, whose numerator
+    and denominator are summed over the ranks) and equals `assemble_loss`
+    on the whole image.
+
+    patch_pkg: render and render_alphas (2DGS: also render_normals,
+    render_normals_from_depth, render_distort) as (Hp, W, C) patches;
+    `interior` (Hp, 1, 1) is 1.0 exactly on this band's own image rows.
+    Returns (contrib, const, sums), `sums` holding l1_sum, ssim_sum,
+    mse_sum and depth_sum, which become metrics once summed."""
+    image = patch_pkg["render"]
+    alpha = patch_pkg["render_alphas"]
+    image = image * alpha_mask_patch
+    gt = gt_patch * alpha_mask_patch
+
+    D_px = float(height * width)
+    D_c = D_px * image.shape[-1]
+
+    l1_sum = torch.sum(torch.abs(image - gt) * interior)
+    ssim_sum = torch.sum(ssim_map(image, gt) * interior)
+    mse_sum = torch.sum((image - gt) ** 2 * interior)
+
+    contrib = ((1.0 - opt.lambda_dssim) * l1_sum / D_c
+               - opt.lambda_dssim * ssim_sum / D_c)
+    const = opt.lambda_dssim * 1.0
+
+    if getattr(opt, "lambda_sky_opa", 0.0) > 0:
+        o = torch.clamp(alpha, 1e-6, 1 - 1e-6)
+        contrib = contrib + opt.lambda_sky_opa * torch.sum(
+            -(1 - alpha_mask_patch) * torch.log(1 - o) * interior) / D_px
+
+    if getattr(opt, "lambda_opacity_entropy", 0.0) > 0:
+        o = torch.clamp(alpha, 1e-6, 1 - 1e-6)
+        contrib = contrib + opt.lambda_opacity_entropy * torch.sum(
+            -o * torch.log(o) * interior) / D_px
+
+    if (getattr(opt, "lambda_normal", 0.0) > 0
+            and "render_normals" in patch_pkg):
+        normals = patch_pkg["render_normals"]
+        nfd = patch_pkg["render_normals_from_depth"] * alpha.detach()
+        n_err = 1.0 - torch.sum(normals * nfd, dim=-1, keepdim=True)
+        gate = float(iteration > opt.normal_start_iter)
+        contrib = contrib + opt.lambda_normal * gate * torch.sum(
+            n_err * alpha_mask_patch * interior) / D_px
+
+    if (getattr(opt, "lambda_dist", 0.0) > 0
+            and "render_distort" in patch_pkg):
+        gate = float(iteration > opt.dist_start_iter)
+        contrib = contrib + opt.lambda_dist * gate * torch.sum(
+            patch_pkg["render_distort"] * alpha_mask_patch * interior) / D_px
+
+    depth_sum = torch.zeros((), device=image.device)
+    if invdepth_patch is not None and render_mode in ("RGB+D", "RGB+ED"):
+        rdepth = patch_pkg["render_depth"]
+        inv = torch.where(rdepth > 0.0,
+                          1.0 / torch.clamp_min(rdepth, 1e-8),
+                          torch.zeros_like(rdepth))
+        dmask = (depth_mask_patch if depth_mask_patch is not None
+                 else torch.ones_like(inv))
+        gate = float(iteration > opt.start_depth)
+        depth_sum = depth_weight * gate * torch.sum(
+            torch.abs((inv - invdepth_patch) * dmask) * interior) / D_px
+        contrib = contrib + depth_sum
+
+    sums = {"l1_sum": l1_sum, "ssim_sum": ssim_sum, "mse_sum": mse_sum,
+            "depth_sum": depth_sum}
+    return contrib, const, sums

@@ -100,13 +100,18 @@ class CameraTensors(NamedTuple):
     has_depth: float           # 0/1
     do_stats: float            # 0/1: accumulate densify statistics
     resolution_scale: float
+    # the view's weight in the data-parallel mean of the sharded step (a
+    # view repeated k times to fill a batch weighs 1/k); the single-device
+    # step ignores it
+    loss_weight: float = 1.0
 
 
 def camera_tensors(cam: Camera, image: Optional[torch.Tensor] = None,
                    alpha_mask: Optional[torch.Tensor] = None,
                    invdepth: Optional[torch.Tensor] = None,
                    depth_mask: Optional[torch.Tensor] = None,
-                   do_stats: bool = False) -> CameraTensors:
+                   do_stats: bool = False,
+                   loss_weight: float = 1.0) -> CameraTensors:
     """A target not passed is the camera's own (a camera loaded from a
     dataset carries them); absent there too, it becomes zeros (image,
     depth) or ones (alpha mask), as in the JAX package."""
@@ -128,7 +133,8 @@ def camera_tensors(cam: Camera, image: Optional[torch.Tensor] = None,
         depth_mask=depth_mask if depth_mask is not None else zero_img,
         has_depth=1.0 if invdepth is not None else 0.0,
         do_stats=1.0 if do_stats else 0.0,
-        resolution_scale=float(cam.resolution_scale))
+        resolution_scale=float(cam.resolution_scale),
+        loss_weight=float(loss_weight))
 
 
 @torch.no_grad()

@@ -5,8 +5,10 @@ each with its files and a finite test PSNR; the JAX package reads the
 coarse run's PLY, MLPs and checkpoint. The two CLIs start from
 differently seeded decoders, so their PSNRs are not compared here
 (`test_torch_trainer.py` holds the trainer to the JAX trainer). Also: the
-options not ported yet (the multi-device ones) are refused, naming their
-ROADMAP queue, and with no card and no `--device` the CLI raises."""
+multi-device options, refused until the mesh path was ported, are parsed
+and passed on (a mesh larger than the launched world is refused; the
+mesh runs themselves are in `test_torch_mesh_trainer.py`), and with no
+card and no `--device` the CLI raises."""
 import json
 import math
 import os
@@ -158,8 +160,17 @@ def test_train_cli_coarse_resume_fine(dataset, tmp_path, trainers):
     ["--uniform_bands"], ["--no_balanced_batches"],
     ["--checkpoint_format", "sharded"]])
 def test_train_cli_refuses_options_not_ported(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"queue 3"):
-        train_main(["--config", str(tmp_path / "unread.yaml"), *argv])
+    """No option is refused as not ported any more: each is parsed and
+    the run goes on to read its config (absent here); `--mesh 2x2` in a
+    process launched alone is refused for wanting 4 ranks."""
+    run = ["--config", str(tmp_path / "unread.yaml"), "--device", "cpu",
+           *argv]
+    if argv[0] == "--mesh":
+        with pytest.raises(ValueError, match=r"needs 4 ranks, only 1"):
+            train_main(run)
+    else:
+        with pytest.raises(FileNotFoundError, match=r"unread\.yaml"):
+            train_main(run)
 
 
 def test_train_cli_needs_a_card_by_default(dataset, tmp_path):

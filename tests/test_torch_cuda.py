@@ -856,3 +856,103 @@ def test_merged_chunks_render_on_card_matches_cpu(card, tmp_path):
     for k in ("render", "render_alphas"):
         torch.testing.assert_close(got[k].cpu(), want[k], atol=2e-4, rtol=0,
                                    msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gs_attr", ["3D", "2D"])
+def test_shifted_band_kernels_match_plain(card, gs_attr):
+    """A band of the flagship view at 128x72 (image rows 27-63, composited
+    with 37 rows, a partial last tile row) through `raster_fields`: 3DGS
+    records shifted by dy = 27, 2DGS at the view's coordinates from row0
+    = 27, as the band step composites them; K1/K3 forward and K2/K4
+    backward on the band's own inputs against their plain versions."""
+    from horizongs_tpu_torch.ops import raster_cuda
+    from horizongs_tpu_torch.ops import raster_fields as rf
+    from horizongs_tpu_torch.render import decode_view
+    step, ts, ct = _train_setup(card, gs_attr=gs_attr)
+    cfg = step.cfg
+    from horizongs_tpu_torch.core.cameras import Camera
+    cam = Camera(viewmat=ct.viewmat, K=ct.K, width=128, height=72,
+                 cam_center=ct.cam_center, uid=ct.uid)
+    with torch.no_grad():
+        dec = decode_view(cam, cfg, ts.params.mlps, ts.anchor_state())
+    args = (dec.means, dec.quats, dec.scales, dec.opacities, dec.colors,
+            cam.viewmat, cam.K, 128, 72)
+    bg = torch.zeros(3, device=card)
+    captured = []
+    name = "rasterize2d_bwd" if gs_attr == "2D" else "rasterize_bwd"
+    bwd = getattr(raster_cuda, name)
+
+    def capture(*a):
+        captured.append(a)
+        return bwd(*a)
+    setattr(raster_cuda, name, capture)
+    try:
+        if gs_attr == "2D":
+            f, radii, depths, _ = rf.pack_fields_2dgs(*args)
+            f = f.detach().requires_grad_(True)
+            out = rf.composite_fields_2dgs(f, radii, depths, 128, 37, bg,
+                                           "RGB+ED", row0=27)
+            loss = out[0].square().sum() + out[3].sum() + out[2].sum()
+        else:
+            f, radii, _ = rf.pack_fields_3dgs(*args)
+            f = f.detach().requires_grad_(True)
+            out = rf.composite_fields_3dgs(rf.shift_band_3dgs(f, 27.0),
+                                           radii, 128, 37, bg, "RGB+ED")
+            loss = out[0].square().sum()
+        loss.backward()
+    finally:
+        setattr(raster_cuda, name, bwd)
+    assert int(out[-1]["n_dropped"]) == 0 and f.grad.abs().max() > 0
+    b = captured[0]
+    if gs_attr == "2D":
+        assert b[-1] == 27
+        kf = raster2d.rasterize2d_fwd(*b[:3], *b[-3:])
+        pf = raster2d.rasterize2d_fwd_plain(*b[:3], *b[-3:])
+        np.testing.assert_allclose(kf[0].detach().cpu(), pf[0].detach().cpu(),
+                                   atol=2e-4)
+        got, want = (raster2d.rasterize2d_bwd(*b),
+                     raster2d.rasterize2d_bwd_plain(*b))
+    else:
+        kf = raster3d.rasterize_fwd(*b[:3], *b[-2:])
+        pf = raster3d.rasterize_fwd_plain(*b[:3], *b[-2:])
+        np.testing.assert_allclose(kf[0].detach().cpu(), pf[0].detach().cpu(),
+                                   atol=2e-5)
+        got, want = raster3d.rasterize_bwd(*b), raster3d.rasterize_bwd_plain(*b)
+    err = (got - want).abs().amax(0)
+    assert (err <= 2e-4 * want.abs().amax(0)).all(), err
+
+
+@pytest.mark.cuda
+def test_mesh_1x1_nccl_step_matches_train_step(card, tmp_path):
+    """The sharded step on a 1x1 mesh of a world of one NCCL rank against
+    `TrainStep` on the same state and view: loss rtol 1e-5, gradients per
+    tensor within 2e-4 x its max |grad|; K1 and K2 once each."""
+    import torch.distributed as dist
+
+    from horizongs_tpu_torch.config import make_optim
+    from horizongs_tpu_torch.convert import train_state_to_device
+    from horizongs_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from horizongs_tpu_torch.parallel.step import (
+        build_sharded_train_step, shard_state)
+    step, ts, ct = _train_setup(card)
+    loss, _, _, grads, _ = step.value_and_grad(
+        train_state_to_device(ts, card), ct, 1.0)
+    assert init_distributed(0, 1, f"file://{tmp_path / 'store'}",
+                            device=card) == "nccl"
+    try:
+        mesh = make_mesh(1, 1, device=card)
+        sstep = build_sharded_train_step(step.cfg, make_optim(start_stat=0),
+                                         mesh, 72, 128)
+        before = (raster3d.KERNEL.launches, raster3d.KERNEL_BWD.launches)
+        loss_m, _, _, grads_m, _ = sstep.value_and_grad(
+            shard_state(ts, mesh), [ct], 1.0)
+        torch.cuda.synchronize()
+        assert (raster3d.KERNEL.launches - before[0],
+                raster3d.KERNEL_BWD.launches - before[1]) == (1, 1)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(float(loss_m), float(loss), rtol=1e-5)
+    for k in grads:
+        for a, b in zip(grads_m[k], grads[k]):
+            assert (a - b).abs().max() <= 2e-4 * b.abs().max(), k
