@@ -166,16 +166,47 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                `--mesh 1x1` (NCCL) for 20: K1 and K2 once an iteration a
                rank plus K1 once an evaluation render, every overflow
                recalibrated, PSNR finite
- 14. report    per-view and per-step timings, the layer breakdowns, the
+ 14. rest      a. inside phase 10, on its dataset: the native image and
+               COLMAP loader (`horizongs_tpu_torch/native.py`) built,
+               timed, or its reason printed and the phase goes on; when
+               built, the 28 views through `camera_list` at resolution 1
+               within an ulp of PIL and at resolution 2 bit for bit
+               `load_image_rgba` and `ImagePool.load_many`, and a
+               1M-point points3D.bin parsed natively equal to the Python
+               walk; each loader the machine has (PIL always) timed:
+               `camera_list` for the 28 views, ms per image, the parse
+               (no kernel).
+               b. phase 13's 1x2 band cases (3DGS, 2DGS), whose
+               `tools/mesh_check` calibrates instance_cap and band_cap as
+               the trainer does: the capacities, the MB exchanged a step
+               and p50 a rank. c. `tools/profile_band_overhead` at 1x1
+               (one NCCL rank): the band step against `TrainStep` by
+               kernel name, the rows summing to the busy difference
+               within 5%, K1 and K2 once a step in each. d.
+               `tools/convergence_check` on quickstart for 400 iterations,
+               single device then `--mesh 1x2` (two gloo ranks): PSNRs
+               finite, the same densify epochs, K1 and K2 once an
+               iteration on every rank; the PSNR gap and anchor counts;
+               K1 and K2 held to their plain versions on the last
+               iteration's arguments of each run (each rank's band).
+               e. `tools/bench_densify` at 1M anchors x 10 offsets: the
+               table's build, the JAX tool's densify epoch and a growth
+               epoch that adds rows, the npz and the 1x1 sharded
+               checkpoint saved and loaded bit for bit, timed. The
+               counts are set to 0 before b-e and read after, each
+               launched process's from its start to its end (the tools'
+               records), and no other kernel runs
+ 15. report    per-view and per-step timings, the layer breakdowns, the
                densify epoch, the train CLI, the serve CLI, the chunks,
-               the mesh, the tools' tables, the kernels line, and last the
-               device line
+               the mesh, the rest, the tools' tables, the kernels line,
+               and last the device line
 
 Prints nothing after a failure and exits non-zero without a card or
 without the package beside it. `--mesh-cli` is the worker mode phase 13
 starts itself.
 """
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -1983,10 +2014,11 @@ def _spawn(cmds, env, timeout):
 
 
 def _band_kernels_vs_plain(path, dev):
-    """The forward and backward kernel of one sharded step, on the
-    arguments `tools/mesh_check --capture` wrote (a band's rows, K3 and K4
-    with the band's first row), against their plain versions at phases
-    4/5's tolerances. Returns (ok, errors)."""
+    """The forward and backward kernel of one training step, on the
+    arguments `tools/mesh_check --capture` or `tools/convergence_check`
+    wrote (of a sharded step: a band's rows, K3 and K4 with the band's
+    first row), against their plain versions at phases 4/5's
+    tolerances. Returns (ok, errors)."""
     import torch
     from horizongs_tpu_torch.ops import raster2d, raster3d
     cap = torch.load(path, map_location=dev, weights_only=False)
@@ -2084,6 +2116,7 @@ def _mesh_steps(root, kernels, dev):
                         launches[i] += c["launches_grad"][j] \
                             + c["launches_timed"][j]
                     entry = {k: c[k] for k in (
+                        "instance_cap", "band_cap",
                         "step_ms_p50", "exchange", "collectives_ms_per_step",
                         "records_local", "records_received", "n_instances",
                         "band_instances_counted", "launches_grad",
@@ -2245,6 +2278,272 @@ def _mesh_cli(root, info, kernels, dev, its=300, resume_its=20):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return rep, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the rest of the port (the native loader, the tools)
+# ---------------------------------------------------------------------------
+
+def _write_points3d(path, n, seed=0, track=2):
+    """A COLMAP points3D.bin of n points from a seed, each with a track
+    of `track` observations, written in one block."""
+    import numpy as np
+    rec = np.dtype([("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3),
+                    ("err", "<f8"), ("tlen", "<u8"),
+                    ("track", "<i4", 2 * track)])
+    rng = np.random.default_rng(seed)
+    a = np.zeros(n, rec)
+    a["id"] = rng.permutation(n) + 1
+    a["xyz"] = rng.normal(0, 50, (n, 3))
+    a["rgb"] = rng.integers(0, 256, (n, 3))
+    a["err"] = rng.uniform(0, 2, n)
+    a["tlen"] = track
+    a["track"] = rng.integers(0, 1000, (n, 2 * track))
+    with open(path, "wb") as f:
+        f.write(np.uint64(n).tobytes())
+        a.tofile(f)
+
+
+def _within_ulp(a, b):
+    import numpy as np
+    return bool((np.abs(a - b)
+                 <= np.spacing(np.maximum(np.abs(a), np.abs(b)))).all())
+
+
+def _native_loader(info, dev, reps=3, n_points=1_000_000):
+    """Phase 14a on phase 10's dataset: the native loader's build, or the
+    reason it has none. With it: the 28 views through `camera_list` at
+    `resolution: 1` against PIL (within an ulp) and at `resolution: 2`
+    against `load_image_rgba` and `ImagePool.load_many` (bit for bit), and
+    a 1M-point points3D.bin parsed natively against the Python walk. Timed
+    either way, for each loader this machine has (PIL always, the native
+    one when it built): `camera_list`'s wall time for the 28 views, ms per
+    image at both resolutions, and the points3D parse."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from horizongs_tpu_torch import native
+    from horizongs_tpu_torch.config import make_model_params
+    from horizongs_tpu_torch.data import camera_build, colmap
+    from horizongs_tpu_torch.data.readers import read_blender_scene
+    t0 = time.perf_counter()
+    ok = native.available()
+    rep = {"available": ok, "build_s": time.perf_counter() - t0}
+    if ok:
+        rep["library"] = native.library_path().name
+    else:
+        rep["reason"] = native.unavailable_reason()
+        print(f"native: unavailable: {rep['reason']}", flush=True)
+    sc = read_blender_scene(info["data"])
+    infos = sc.train_cameras + sc.test_cameras
+    rep["views"] = len(infos)
+    loaders = {"pil": _Wrapped(native, "available",
+                               lambda orig: (lambda: False))}
+    if ok:
+        loaders["native"] = contextlib.nullcontext()
+
+    def cams(res):
+        return camera_build.camera_list(
+            infos, make_model_params(resolution=res, data_format="blender"),
+            1.0, device=dev)
+    got = {}
+    for name, ctx in loaders.items():
+        with ctx:
+            t0 = time.perf_counter()
+            got[name] = {1: cams(1)}
+            rep[f"camera_list_s_{name}"] = time.perf_counter() - t0
+            got[name][2] = cams(2)
+            for res in (1, 2):
+                sizes = [(c.width, c.height) for c in got[name][res]]
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    for i, wh in zip(infos, sizes):
+                        camera_build._load_image(i.image_path, wh)
+                rep[f"ms_per_image_{name}_resolution_{res}"] = (
+                    (time.perf_counter() - t0) * 1e3 / (reps * len(infos)))
+    if ok:
+        for a, b in zip(got["native"][1], got["pil"][1]):
+            for f in ("image", "alpha_mask"):
+                _require(_within_ulp(getattr(a, f).cpu().numpy(),
+                                     getattr(b, f).cpu().numpy()),
+                         f"native: {f} of view {a.uid} at resolution 1 is "
+                         f"not within an ulp of PIL's")
+        jobs = [(i.image_path, c.width, c.height)
+                for i, c in zip(infos, got["native"][2])]
+        with native.ImagePool() as pool:
+            pooled = pool.load_many(jobs)
+        for (path, w, h), c, p in zip(jobs, got["native"][2], pooled):
+            want = native.load_image_rgba(path, w, h)
+            _require(np.array_equal(p, want),
+                     f"native: pool != load of {path}")
+            _require(np.array_equal(c.image.cpu().numpy(), want[..., :3])
+                     and np.array_equal(c.alpha_mask.cpu().numpy(),
+                                        want[..., 3:4]),
+                     f"native: camera of {path} at resolution 2 differs "
+                     f"from load_image_rgba")
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_colmap_"))
+    try:
+        path = str(work / "points3D.bin")
+        _write_points3d(path, n_points)
+        rep["points3d_points"] = n_points
+        rep["points3d_mb"] = os.path.getsize(path) / 1e6
+        t0 = time.perf_counter()
+        walk = colmap._read_points3D_binary_walk(path)
+        rep["points3d_walk_s"] = time.perf_counter() - t0
+        _require(walk[0].shape[0] == n_points, "points3D: the walk's count")
+        if ok:
+            t0 = time.perf_counter()
+            parsed = colmap.read_points3D_binary_full(path)
+            rep["points3d_native_s"] = time.perf_counter() - t0
+            _require(all(a.dtype == b.dtype and np.array_equal(a, b)
+                         for a, b in zip(parsed, walk)),
+                     "native: the points3D parse differs from the walk")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    line = "; ".join(
+        f"{name}: camera_list {rep[f'camera_list_s_{name}']:.3f} s for "
+        f"{len(infos)} views, "
+        f"{rep[f'ms_per_image_{name}_resolution_1']:.3f} / "
+        f"{rep[f'ms_per_image_{name}_resolution_2']:.3f} ms an image at "
+        f"resolution 1 / 2" for name in loaders)
+    line += (f"; points3D {n_points} points ({rep['points3d_mb']:.1f} MB): "
+             f"walk {rep['points3d_walk_s']:.3f} s")
+    if ok:
+        line = (f"native: built in {rep['build_s']:.2f} s; resolution 1 "
+                f"within an ulp of PIL, resolution 2 bit for bit "
+                f"load_image_rgba and the pool; " + line
+                + f", native {rep['points3d_native_s']:.3f} s "
+                f"({rep['points3d_walk_s'] / rep['points3d_native_s']:.1f}x)")
+    else:
+        line = "native: unavailable, PIL and the walk only; " + line
+    print(line, flush=True)
+    return rep
+
+
+def _calibrated_exchange(rep13):
+    """Phase 14b: the 1x2 band cases of phase 13's gloo launch, whose
+    `tools/mesh_check` now calibrates instance_cap and band_cap as the
+    trainer does (held there: gradients within 2e-4 x max, nothing
+    dropped): the capacities, the bytes exchanged a step, p50 a rank."""
+    out = {}
+    for name in ("1x2", "1x2:2D"):
+        per = rep13["world2"]["cases"][name]["per_rank"]
+        caps = {(x["instance_cap"], x["band_cap"]) for x in per}
+        _require(len(caps) == 1, f"mesh {name}: capacities {caps}")
+        cap, band_cap = caps.pop()
+        _require(band_cap is not None, f"mesh {name}: no band_cap")
+        out[name] = {"instance_cap": cap, "band_cap": band_cap,
+                     "exchange_mb_per_step":
+                         per[0]["exchange"]["bytes_per_step"] / 1e6,
+                     "step_ms_p50": [x["step_ms_p50"] for x in per]}
+        print(f"mesh_check calibrated: {name} band_cap {band_cap}, "
+              f"instance_cap {cap}, exchange "
+              f"{out[name]['exchange_mb_per_step']:.2f} MB a step, p50 "
+              + " / ".join(f"{x:.2f}" for x in out[name]["step_ms_p50"])
+              + " ms a rank", flush=True)
+    return out
+
+
+def _band_overhead(root, work):
+    """Phase 14c: `tools/profile_band_overhead` at the 1080p flagship, 1x1
+    (one NCCL rank through `torch.distributed.run`): its table's top rows;
+    the rows must sum to the busy difference within 5% and K1 and K2
+    launch once a step in each step."""
+    out = work / "band_profile.json"
+    logs = _spawn([[sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc_per_node", "1", "-m",
+                    "horizongs_tpu_torch.tools.profile_band_overhead",
+                    "--out", str(out)]],
+                  dict(os.environ, PYTHONPATH=str(root)), 600)
+    with open(out) as f:
+        rec = json.load(f)
+    lines = logs[0].splitlines()
+    first = next(i for i, x in enumerate(lines)
+                 if x.startswith("1x1 band step"))
+    for line in lines[first:first + 12]:
+        print(f"band overhead: {line}", flush=True)
+    _require(rec["backend"] == "nccl", f"band overhead on {rec['backend']}")
+    _require(rec["rows_match_total"],
+             f"band overhead: rows sum {rec['rows_sum_ms']} ms against the "
+             f"busy difference {rec['total_diff_ms']} ms")
+    for k in ("plain", "band"):
+        _require(rec[k]["launches_per_step"] == {"K1": 1.0, "K2": 1.0},
+                 f"band overhead {k}: launches {rec[k]['launches_per_step']}")
+        n = rec[k]["steps_run"]
+        _require(rec[k]["launches"] == {"K1": n, "K2": n},
+                 f"band overhead {k}: {rec[k]['launches']} launches in "
+                 f"{n} steps")
+    _require(rec["launches_process"] == {
+        x: rec["launches_setup"][x] + rec["plain"]["launches"][x]
+        + rec["band"]["launches"][x] for x in ("K1", "K2")},
+        f"band overhead: the process launched {rec['launches_process']}, "
+        f"not its set-up's {rec['launches_setup']} and its steps'")
+    rec["rows_k1_k2"] = [r for r in rec["rows"] if "raster3d" in r["name"]]
+    rec["rows"] = rec["rows"][:20]
+    return rec
+
+
+def _convergence(work, its=400):
+    """Phase 14d: `tools/convergence_check` on quickstart for `its`
+    iterations, single device then `--mesh 1x2` (two gloo ranks on the
+    card): both PSNRs finite, the same densify epochs, K1 and K2 once an
+    iteration on every rank. The last iteration's kernel arguments are
+    captured in each run (each rank's band) for `_captured_vs_plain`."""
+    from horizongs_tpu_torch.tools import convergence_check
+    out = work / "convergence.json"
+    convergence_check.main(["--iterations", str(its), "--workdir",
+                            str(work / "conv"), "--out", str(out)])
+    with open(out) as f:
+        rec = json.load(f)
+    s, m = rec["single"], rec["mesh_1x2"]
+    _require(math.isfinite(s["test_psnr"]) and math.isfinite(m["test_psnr"]),
+             f"convergence: PSNR {s['test_psnr']}, {m['test_psnr']}")
+    _require(rec["densify_epochs"]["single"] == rec["densify_epochs"]["mesh"]
+             and rec["densify_epochs"]["single"] >= 1,
+             f"convergence: densify epochs {rec['densify_epochs']}")
+    _require(rec["launches_once_per_iteration"],
+             "convergence: K1/K2 launches "
+             + str([r["launches"] for r in s["ranks"] + m["ranks"]]))
+    return rec
+
+
+def _captured_vs_plain(rec, dev):
+    """K1 and K2 against their plain versions on the arguments of
+    convergence's captured steps (the single run's 64x64 view, each 1x2
+    rank's band with its halo), at phases 4/5's tolerances."""
+    out = {}
+    for run, paths in rec["captures"].items():
+        for r, path in enumerate(paths):
+            ok, errs = _band_kernels_vs_plain(path, dev)
+            _require(ok, f"convergence {run} rank {r}: a kernel disagrees "
+                     f"with its plain version on its step's inputs: {errs}")
+            out[f"{run}_rank{r}"] = errs
+            print(f"convergence {run} rank {r}: K1/K2 on iteration "
+                  f"{rec['iterations']}'s inputs ({errs['shape']}) within "
+                  f"tolerance of the plain versions: K1 acc "
+                  f"{errs['fwd']['acc_rgb_alpha']:.3g}, K2 "
+                  f"{errs['bwd']['max_abs_err']:.3g}", flush=True)
+    return out
+
+
+def _densify_bench(work):
+    """Phase 14e: `tools/bench_densify` at 1M anchors x 10 offsets on the
+    card: the JAX tool's epoch, and a growth epoch that adds rows; the npz
+    and sharded round trips bit for bit."""
+    from horizongs_tpu_torch.tools import bench_densify
+    out = work / "densify_bench.json"
+    rc = bench_densify.main(["--out", str(out)])
+    with open(out) as f:
+        rec = json.load(f)
+    _require(rc == 0 and all(rec["round_trip_exact"].values()),
+             f"densify bench: round trip {rec['round_trip_exact']}")
+    g = rec["grow_epoch"]
+    _require(g is not None and g["added"] > 0
+             and g["anchors_after_densify"]
+             == rec["anchors"] + g["added"] - g["pruned"],
+             f"densify bench: the growth epoch {g}")
+    return rec
 
 
 def main() -> int:
@@ -2816,9 +3115,7 @@ def main() -> int:
     # 10. the train CLI on the flagship512 config, 11. the serving and
     # export CLIs on the model directories it writes and 12. the chunk
     # pipeline on its dataset ---------------------------------------------
-    t11, t12 = [], []
-
-    t13 = []
+    t11, t12, t13, t14 = [], [], [], []
 
     def serve_cli_and_chunks(coarse, surfel, info):
         t0 = time.perf_counter()
@@ -2830,14 +3127,18 @@ def main() -> int:
         t0 = time.perf_counter()
         out13 = _mesh_cli(root, info, ALL, dev)
         t13.append(time.perf_counter() - t0)
-        return out11, out12, out13
+        # 14a. the native loader on this dataset (no kernel)
+        t0 = time.perf_counter()
+        out14 = _native_loader(info, dev)
+        t14.append(time.perf_counter() - t0)
+        return out11, out12, out13, out14
 
     t_cli = time.perf_counter()
     cli10, ((rep11, launches11), (rep12, launches12),
-            (rep13_cli, launches13_cli)) = _train_cli(
+            (rep13_cli, launches13_cli), rep14_native) = _train_cli(
         root, ALL, dev, then=serve_cli_and_chunks)
     cli10["seconds"] = (time.perf_counter() - t_cli - t11[0] - t12[0]
-                        - t13[0])
+                        - t13[0] - t14[0])
     c10 = cli10["coarse"]
     print(f"train CLI: {c10['iterations']} coarse iterations at "
           f"{c10['iterations_per_s']:.2f} it/s (p50 "
@@ -2874,11 +3175,68 @@ def main() -> int:
     print(f"mesh: {t13[0] + t13[1]:.1f} s (train CLI {t13[0]:.1f} s, "
           f"steps {t13[1]:.1f} s)", flush=True)
 
-    # 14. report -------------------------------------------------------------
+    # 14. the rest: the native loader (14a, above), mesh_check's
+    # calibrated exchange (14b, phase 13's launch), the band overhead
+    # (14c), convergence (14d) and the city-scale densify (14e) --------
+    import shutil
+    import tempfile
+    work14 = Path(tempfile.mkdtemp(prefix="chip_smoke_rest_"))
+    t0 = time.perf_counter()
+    try:
+        rep14_mesh = _calibrated_exchange(rep13)
+        _reset(ALL)
+        rep14_band = _band_overhead(root, work14)
+        rep14_conv = _convergence(work14)
+        rep14_dens = _densify_bench(work14)
+        launches14_here = _counts(ALL)
+        rep14_conv["kernels_vs_plain"] = _captured_vs_plain(rep14_conv, dev)
+    finally:
+        shutil.rmtree(work14, ignore_errors=True)
+    t14.append(time.perf_counter() - t0)
+    _require(launches14_here[2:] == (0, 0, *NO_TOOLS),
+             f"phase 14 launched {launches14_here}")
+    # this process ran convergence's single-device run; the others ran in
+    # the processes the tools launched, each counting from its start
+    conv_s, conv_m = rep14_conv["single"], rep14_conv["mesh_1x2"]
+    launches14 = tuple(
+        launches14_here[i]
+        + sum(r["launches_process"][i] for r in conv_m["ranks"])
+        + rep14_band["launches_process"][("K1", "K2")[i]]
+        for i in (0, 1)) + (0, 0, *NO_TOOLS)
+    print(f"convergence: quickstart {rep14_conv['iterations']} iterations, "
+          f"test PSNR single {conv_s['test_psnr']:.3f} / --mesh 1x2 "
+          f"{conv_m['test_psnr']:.3f} (gap {rep14_conv['psnr_gap_db']:.4f} "
+          f"dB), anchors {rep14_conv['anchors_final']['single']} / "
+          f"{rep14_conv['anchors_final']['mesh']}, densify epochs "
+          f"{rep14_conv['densify_epochs']['single']} / "
+          f"{rep14_conv['densify_epochs']['mesh']}; "
+          f"{conv_s['seconds']:.1f} / {conv_m['seconds']:.1f} s", flush=True)
+    d = rep14_dens
+    print(f"densify bench: {d['anchors']} anchors x {d['n_offsets']} "
+          f"(capacity {d['capacity']}; params {d['device_mb']['params']:.0f}"
+          f" MB, moments {d['device_mb']['adam_moments']:.0f} MB, stats "
+          f"{d['device_mb']['stats']:.0f} MB): build {d['build_s']:.2f} s, "
+          f"densify epoch {d['densify_epoch_s']:.3f} s "
+          f"({json.dumps(d['densify_phases_ms'])}; +{d['added']} "
+          f"-{d['pruned']}), npz save {d['checkpoint_save_s']:.2f} s / load "
+          f"{d['checkpoint_load_s']:.2f} s ({d['checkpoint_mb']:.1f} MB), "
+          f"sharded 1x1 save {d['sharded_save_s']:.2f} s / load "
+          f"{d['sharded_load_s']:.2f} s ({d['sharded_mb']:.1f} MB), round "
+          f"trips bit for bit", flush=True)
+    g = d["grow_epoch"]
+    print(f"densify bench, growth epoch ({g['share']} of the observed "
+          f"offsets past the threshold, {g['candidates']} candidates): "
+          f"{g['densify_epoch_s']:.3f} s ({json.dumps(g['densify_phases_ms'])}"
+          f"; +{g['added']} -{g['pruned']}, {g['anchors_after_densify']} "
+          f"anchors, capacity {g['capacity_after_densify']})", flush=True)
+    print(f"rest: {t14[0] + t14[1]:.1f} s (native {t14[0]:.1f} s)",
+          flush=True)
+
+    # 15. report -------------------------------------------------------------
     paths = {"serve_3dgs": sv["launches"], "train_3dgs": tr["launches"],
              "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"],
              "train_cli": cli10["launches"], "serve_cli": launches11,
-             "chunks": launches12, "mesh": launches13}
+             "chunks": launches12, "mesh": launches13, "rest": launches14}
 
     def launches(i):
         return {p: n[i] for p, n in paths.items()}
@@ -2941,6 +3299,16 @@ def main() -> int:
         "card": card, "seconds": t13[0] + t13[1],
         "launches": dict(zip(("K1", "K2", "K3", "K4"), launches13[:4])),
         "steps": rep13, "train_cli": rep13_cli}))
+    print(json.dumps({
+        "slice": "rest: native loader on flagship512's dataset, mesh_check "
+                 "calibrated (1x2, gloo), band overhead 1920x1088 1x1 "
+                 "(nccl), convergence quickstart single vs --mesh 1x2, "
+                 "densify and checkpoints at 1M anchors (cuda)",
+        "card": card, "seconds": t14[0] + t14[1],
+        "launches": dict(zip(("K1", "K2", "K3", "K4"), launches14[:4])),
+        "native": rep14_native, "mesh_check_calibrated": rep14_mesh,
+        "band_overhead": rep14_band, "convergence": rep14_conv,
+        "densify_bench": rep14_dens}))
     print(json.dumps({"slice": "tools T1-T3 (cuda)", "card": card,
                       "seconds": tools_s,
                       "T1_ms": t1_times, "T1_equal_l_sweep": t1_sweep,

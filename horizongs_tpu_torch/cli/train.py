@@ -12,6 +12,9 @@ cfg_args and a copy of this package's source under backup/.
 `--profile N` writes a `torch.profiler` trace of N iterations from
 iteration 20 into <model_path>/profile/, and `--detect_anomaly` turns on
 `torch.autograd.set_detect_anomaly` (the reference's `train.py:760`).
+`--wandb` logs to a wandb run (project "horizongs_tpu", rank 0) when the
+`wandb` package imports; without it the run logs "wandb unavailable" and
+trains on.
 
 Several ranks train one scene over a data x model mesh (`--mesh DxM`,
 `parallel/step.py`), one process a rank, launched with
@@ -30,6 +33,10 @@ import argparse
 import json
 import os
 import shutil
+
+
+# the JAX CLI's compositing backends, each the port's cuda path
+JAX_RASTERIZERS = ("auto", "pallas", "tiled", "pallas_interpret")
 
 
 def main(argv=None):
@@ -51,12 +58,18 @@ def main(argv=None):
                         help="chkpnt{N}.npz (of either package) to resume "
                         "from")
     parser.add_argument("--rasterizer", default="cuda",
-                        choices=["cuda", "dense"])
+                        choices=["cuda", "dense", *JAX_RASTERIZERS],
+                        help="cuda (K1-K4; their plain versions on the "
+                        "CPU) or dense; the JAX CLI's auto, pallas, tiled "
+                        "and pallas_interpret name the compositing path, "
+                        "here cuda")
     parser.add_argument("--device", default=None,
                         help="the card when omitted (raises without one), "
                         "or cpu")
     parser.add_argument("--skip_eval", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--wandb", action="store_true",
+                        help="log to a wandb run (when wandb imports)")
     parser.add_argument("--disable_tb", action="store_true",
                         help="skip tensorboard SummaryWriter creation")
     parser.add_argument("--viewer_port", type=int, default=None,
@@ -93,6 +106,8 @@ def main(argv=None):
                         "directory, each rank its rows); sharded under "
                         "--mesh, npz otherwise")
     args = parser.parse_args(argv)
+    if args.rasterizer in JAX_RASTERIZERS:
+        args.rasterizer = "cuda"
 
     import torch
     import torch.distributed as dist
@@ -129,6 +144,15 @@ def main(argv=None):
     if main_rank:
         _write_run_files(args, lp, op)
 
+    wandb_run = None
+    if args.wandb and main_rank:
+        try:
+            import wandb
+            wandb_run = wandb.init(project="horizongs_tpu",
+                                   name=str(lp.scene_name), config=vars(op))
+        except Exception as e:      # no package, no login, no network
+            logger.info(f"wandb unavailable: {e}")
+
     tb_writer = None
     if not args.disable_tb and main_rank:
         try:
@@ -149,7 +173,8 @@ def main(argv=None):
                       balanced_bands=(False if args.uniform_bands
                                       else args.balanced_bands),
                       balanced_batches=(False if args.no_balanced_batches
-                                        else None))
+                                        else None),
+                      wandb_run=wandb_run)
     iterations = op.iterations
     save_iters = set(args.save_iterations
                      if args.save_iterations is not None else [iterations])

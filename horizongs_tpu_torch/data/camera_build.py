@@ -13,9 +13,11 @@ the requested device (the trainer's: a 512x512 view takes 4 MB there):
     with the "sky" trick: pixels deeper than the midrange get masked when
     the dynamic range exceeds 100x (`cameras.py:70-76`)
 
-Images decode through PIL. The JAX package prefers its `native/` C++
-decoder when built; that equals PIL at `resolution: 1` (lossless PNG, no
-resize) but not when resizing, and is not bound here yet.
+JPEG/PNG images decode and resize through the native C++ loader
+(`horizongs_tpu_torch.native`, the JAX package's `native/` source) when it
+builds, as the JAX package's loader does, so both train on the same
+pixels; other formats, and every image when the library is unavailable,
+go through PIL.
 """
 from __future__ import annotations
 
@@ -38,7 +40,15 @@ _WARNED = False
 
 
 def _load_image(path: str, resolution) -> np.ndarray:
-    """Decode + resize + normalize through PIL -> (H, W, C) float32."""
+    """Decode + resize + normalize -> (H, W, C) float32, C the file's
+    channel count (the alpha handling keys on it): the native loader for
+    `NATIVE_FORMATS` when it is available, else PIL."""
+    from horizongs_tpu_torch import native
+    if path.endswith(native.NATIVE_FORMATS) and native.available():
+        arr = native.load_image_rgba(path, resolution[0], resolution[1])
+        _, _, c = native.image_info(path)
+        return (arr[..., :4] if c in (2, 4) else arr[..., :3] if c == 3
+                else arr[..., :1])
     from PIL import Image
     with Image.open(path) as im:
         im = im.resize(resolution)
@@ -171,8 +181,8 @@ def camera_list(infos: List[CameraInfo], args,
                 resolution_scale: float = 1.0, max_workers: int = 8,
                 device: DeviceLike = None) -> List[Camera]:
     """Thread-pool camera construction (the reference's
-    `cameraList_from_camInfos` pool, `utils/camera_utils.py:69-90`); PIL
-    releases the GIL while it decodes."""
+    `cameraList_from_camInfos` pool, `utils/camera_utils.py:69-90`); the
+    native loader and PIL release the GIL while they decode."""
     dev = resolve_device(device)
     if len(infos) <= 1 or max_workers <= 1:
         return [load_camera(args, i, info, resolution_scale, dev)

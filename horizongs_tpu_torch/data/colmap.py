@@ -142,10 +142,21 @@ def read_images_text(path: str) -> Dict[int, ColmapImage]:
 
 
 def read_points3D_binary_full(path: str):
-    """points3D.bin -> (ids (N,) int64, xyz (N,3), rgb (N,3), err (N,)).
+    """points3D.bin -> (ids (N,) int64, xyz (N,3), rgb (N,3) uint8,
+    err (N,)).
 
-    A per-point struct walk: the JAX package's `native/` parser is not
-    bound here yet."""
+    The native parser (`horizongs_tpu_torch.native`: one read and a
+    pointer walk) when it is available, else a per-point struct walk with
+    the same dtypes (the reference's `read_points3D_binary` costs tens of
+    seconds on city-scale models)."""
+    from horizongs_tpu_torch import native
+    if native.available():
+        return native.read_colmap_points3d(path)
+    return _read_points3D_binary_walk(path)
+
+
+def _read_points3D_binary_walk(path: str):
+    """The per-point struct walk of `read_points3D_binary_full`."""
     with open(path, "rb") as f:
         (num,) = _read(f, 8, "Q")
         ids = np.empty(num, dtype=np.int64)

@@ -7,7 +7,10 @@ step, and its timings.
 Every rank builds the flagship LOD model of `chip_smoke.py` (random
 weights from seed 0, 20,000 points, voxel 0.02) and its targets (the model
 with feat from seed 1, rendered at orbit views); data index d trains on
-view 2d. Each case is one step's reduced gradients
+view 2d. A band case's capacities are calibrated as the trainer calibrates
+them (`_calibrate`): each band's instances with its halo rows over the
+scene's views x 1.15, and the records of the busiest (source rank, band)
+pair x 1.25 (`band_cap`). Each case is one step's reduced gradients
 (`parallel/step.ShardedTrainStep`), gathered on rank 0 and held to the
 single-device `TrainStep`'s on the same state (the weighted mean over the
 batch's views): per tensor within 2e-4 x its max |grad|, each rank's loss
@@ -92,6 +95,26 @@ def _scene(dev, W, H, gs_attr, n_points):
             cts.append(camera_tensors(c, image=img, do_stats=True))
     return {"cfg": cfg, "state": state, "mlps": mlps, "cams": cams,
             "cts": cts, "cap": cap}
+
+
+def _calibrate(scene, n_model):
+    """(instance_cap, band_cap) of a band step, as `Trainer._calibrate_cap`
+    and `Trainer._calibrate_band_cap` take them at their first margins:
+    each band's tile instances with its halo rows
+    (`parallel.step.count_band_instances`) and, with more than one band,
+    the records one (source rank, band) pair carries
+    (`count_band_records`), their most over the scene's views."""
+    from horizongs_tpu_torch.ops.raster_cuda import suggest_instance_cap
+    from horizongs_tpu_torch.parallel.step import (
+        count_band_instances, count_band_records)
+    from horizongs_tpu_torch.parallel.tile_exchange import suggest_band_cap
+    args = (scene["cfg"], scene["mlps"], scene["state"], n_model)
+    n = max(max(count_band_instances(c, *args)) for c in scene["cams"])
+    cap = suggest_instance_cap(n, margin=1.15)
+    if n_model == 1:
+        return cap, None
+    n_rec = max(count_band_records(c, *args) for c in scene["cams"])
+    return cap, suggest_band_cap(n_rec, margin=1.25)
 
 
 def parse_case(spec: str) -> dict:
@@ -238,7 +261,10 @@ def run_case(case, scene, mesh, n_steps, capture_dir=None, ref_cache=None):
     opt_grad, opt_timed = _optims(case["gs"])
     kernels, names = _kernels(case["gs"])
     ts0 = init_train_state(scene["state"], scene["mlps"])
-    kw = dict(instance_cap=scene["cap"], shard_tiles=case["shard_tiles"])
+    cap, band_cap = (_calibrate(scene, n_model) if case["shard_tiles"]
+                     else (scene["cap"], None))
+    kw = dict(instance_cap=cap, band_cap=band_cap,
+              shard_tiles=case["shard_tiles"])
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
 
@@ -248,7 +274,8 @@ def run_case(case, scene, mesh, n_steps, capture_dir=None, ref_cache=None):
     loss, _, side, grads, _ = step.value_and_grad(shard_state(ts0, mesh),
                                                   cams, 1.0)
     sync()
-    rec = {"launches_grad": _launches(kernels),
+    rec = {"instance_cap": cap, "band_cap": band_cap,
+           "launches_grad": _launches(kernels),
            "dropped": int(side["n_dropped_exchange"])
            + int(side["n_dropped_instances"]),
            "n_instances": int(side["n_instances"]),
@@ -450,7 +477,8 @@ def main(argv=None) -> int:
     if rank == 0:
         print(json.dumps({**report, "cases": {
             k: {x: v[x] for x in ("held", "grad_worst_share_of_max",
-                                  "loss", "step_ms_p50", "exchange",
+                                  "loss", "instance_cap", "band_cap",
+                                  "step_ms_p50", "exchange",
                                   "collectives_ms_per_step") if x in v}
             for k, v in report["cases"].items()}}), flush=True)
     held = all(v.get("held", True) for v in report["cases"].values())

@@ -22,6 +22,9 @@ reference trainer, `train.py:83-285`):
     (`train.py:113-127`)
   * a `torch.profiler` trace of `profile_steps` = (first, n) iterations
     into <model_path>/profile/trace.json
+  * a wandb run (`wandb_run`, rank 0): the JAX trainer's keys at its
+    steps (the loss, PSNR and anchor count at each progress line, each
+    milestone evaluation's L1 and PSNR and its first views' renders)
 
 Cameras are grouped by resolution; each (H, W, capacity, active SH degree,
 prefilter) combination builds one step with a calibrated instance
@@ -92,7 +95,7 @@ class Trainer:
                  mesh=None, band_cap: Optional[int] = None,
                  checkpoint_format: str = "npz",
                  balanced_bands: Optional[bool] = None,
-                 balanced_batches: Optional[bool] = None):
+                 balanced_batches: Optional[bool] = None, wandb_run=None):
         self.cfg = cfg
         self.op = op
         self.pp = pp
@@ -102,6 +105,7 @@ class Trainer:
         self.rng = random.Random(seed)
         self.np_rng = np.random.default_rng(seed)
         self.tb = tb_writer
+        self.wandb = wandb_run
         self._steps = {}
         # per-resolution capacity margins: an overflow at one resolution
         # does not rebuild the steps of the others
@@ -542,17 +546,25 @@ class Trainer:
                 l1s.append(float(l1_loss(img, gt)))
                 psnrs.append(float(psnr(img, gt)))
                 # render/gt images at milestones (`train.py:348-359`)
+                tag = f"{name}_view_{int(cam.uid)}"
                 if vi < 3 and self.tb is not None:
-                    tag = f"{name}_view_{int(cam.uid)}"
                     self.tb.add_image(f"{tag}/render",
                                       img.permute(2, 0, 1).cpu(), it)
                     self.tb.add_image(f"{tag}/ground_truth",
                                       gt.permute(2, 0, 1).cpu(), it)
+                if vi < 3 and self.wandb is not None:
+                    import wandb
+                    self.wandb.log({f"{tag}/render":
+                                    wandb.Image(img.cpu().numpy())}, step=it)
             results[name] = {"l1": float(np.mean(l1s)),
                              "psnr": float(np.mean(psnrs))}
             self.log(f"[ITER {it}] Evaluating {name}: "
                      f"L1 {results[name]['l1']:.4f} "
                      f"PSNR {results[name]['psnr']:.2f}")
+            if self.wandb is not None:
+                self.wandb.log({f"{name}_l1": results[name]["l1"],
+                                f"{name}_psnr": results[name]["psnr"]},
+                               step=it)
             if self.tb is not None:
                 self.tb.add_scalar(f"{name}/l1", results[name]["l1"], it)
                 self.tb.add_scalar(f"{name}/psnr", results[name]["psnr"],
@@ -635,6 +647,9 @@ class Trainer:
                 self.log(f"[it {it:6d}] loss={ema_loss:.5f} psnr={p:.2f} "
                          f"anchors={int(self.state.n)} "
                          f"({(time.time() - t_start):.0f}s)")
+                if self.wandb is not None:
+                    self.wandb.log({"train_total_loss": loss, "psnr": p,
+                                    "anchors": int(self.state.n)}, step=it)
                 if self.tb is not None:
                     # reference tensorboard scalars (`train.py:309-316`)
                     self.tb.add_scalar("train/total_loss", loss, it)

@@ -28,6 +28,7 @@ import torch
 import yaml
 
 import horizongs_tpu.native
+import horizongs_tpu_torch.native
 from horizongs_tpu.cli.merge import main as j_merge_main
 from horizongs_tpu.config import make_model_params as j_model_params
 from horizongs_tpu.data.scene import Scene as JScene
@@ -74,9 +75,11 @@ TRUE_BOUNDS = {"0_0": [[-4.0, 0.0], [-4.0, 4.0]],
 
 @pytest.fixture(autouse=True)
 def pil_only(monkeypatch):
-    """The JAX image loader through PIL, as the port's
+    """Both packages' image loaders through PIL
     (`tests/test_torch_data.py`)."""
     monkeypatch.setattr(horizongs_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(horizongs_tpu_torch.native, "available",
+                        lambda: False)
 
 
 @pytest.fixture(scope="module")

@@ -158,7 +158,8 @@ def test_train_cli_coarse_resume_fine(dataset, tmp_path, trainers):
 @pytest.mark.parametrize("argv", [
     ["--mesh", "2x2"], ["--band_cap", "64"], ["--balanced_bands"],
     ["--uniform_bands"], ["--no_balanced_batches"],
-    ["--checkpoint_format", "sharded"]])
+    ["--checkpoint_format", "sharded"], ["--wandb"],
+    ["--rasterizer", "pallas"]])
 def test_train_cli_refuses_options_not_ported(argv, tmp_path):
     """No option is refused as not ported any more: each is parsed and
     the run goes on to read its config (absent here); `--mesh 2x2` in a

@@ -956,3 +956,30 @@ def test_mesh_1x1_nccl_step_matches_train_step(card, tmp_path):
     for k in grads:
         for a, b in zip(grads_m[k], grads[k]):
             assert (a - b).abs().max() <= 2e-4 * b.abs().max(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("golden", ["analytic_3dgs_1", "analytic_3dgs_3",
+                                    "analytic_2dgs", "scene32"])
+def test_goldens_through_kernels(card, golden):
+    """The JAX package's external anchors (`tests/test_torch_goldens.py`)
+    through the kernels: the closed-form renders through K1 (one splat,
+    a stack of three) and K3 (a surfel), and the committed scene32 npz's
+    render, alphas and gradients through K1 and K2, each launched."""
+    import test_torch_goldens as tg
+
+    from horizongs_tpu_torch.ops.raster_cuda import (
+        rasterize_cuda_2dgs, rasterize_cuda_3dgs)
+    kernels = ((raster2d.KERNEL_2D,) if golden == "analytic_2dgs" else
+               (raster3d.KERNEL, raster3d.KERNEL_BWD) if golden == "scene32"
+               else (raster3d.KERNEL,))
+    before = [k.launches for k in kernels]
+    if golden == "analytic_2dgs":
+        tg.check_analytic_2dgs(rasterize_cuda_2dgs, card)
+    elif golden == "scene32":
+        tg.check_pinned_scene(rasterize_cuda_3dgs, card)
+    else:
+        tg.check_analytic_3dgs(rasterize_cuda_3dgs, int(golden[-1]), card)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [1] * len(kernels)

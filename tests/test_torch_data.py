@@ -1,8 +1,8 @@
 """Port parity, data: each dataset reader on a written dataset (Blender,
 COLMAP, MatrixCity-style city, UCGS) against the JAX package's reader;
-`load_camera` at resolution 1 and 2 (the JAX side through PIL: its
-`native/` decoder resizes otherwise, and at resolution 1 lies within one
-float32 ulp of PIL); the synthetic dataset writer; `Scene`
+`load_camera` at resolution 1 and 2, both packages through PIL and, where
+the native loader builds, both through it (`tests/test_torch_native.py`
+holds the loaders themselves); the synthetic dataset writer; `Scene`
 coarse, fine and loaded from a saved iteration; and the evaluation
 (`render_set`, `evaluate_sets`) on the same state and cameras.
 
@@ -26,6 +26,7 @@ import torch
 from PIL import Image
 
 import horizongs_tpu.native
+import horizongs_tpu_torch.native
 from horizongs_tpu.config import make_model_params as j_model_params
 from horizongs_tpu.data import camera_build as jcb
 from horizongs_tpu.data import colmap as jcol
@@ -54,12 +55,15 @@ LOD = dict(name="GaussianLoDModel", feat_dim=8, n_offsets=4, view_dim=3,
 
 
 _NATIVE_AVAILABLE = horizongs_tpu.native.available
+_T_NATIVE_AVAILABLE = horizongs_tpu_torch.native.available
 
 
 @pytest.fixture(autouse=True)
 def pil_only(monkeypatch):
-    """The JAX loader through PIL, as the port's (see the module doc)."""
+    """Both packages' loaders through PIL (see the module doc)."""
     monkeypatch.setattr(horizongs_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(horizongs_tpu_torch.native, "available",
+                        lambda: False)
 
 
 @pytest.fixture(scope="module")
@@ -220,16 +224,17 @@ def test_load_camera_matches(resolution, depth, blender, tmp_path,
     args_j = j_model_params(resolution=resolution, data_format="blender")
     args_t = make_model_params(resolution=resolution, data_format="blender")
     got = tcb.camera_list(infos, args_t, 1.0, device="cpu")
-    if resolution == 1 and _NATIVE_AVAILABLE():
-        # the JAX loader's native decoder, where built, normalises by a
-        # reciprocal: within one float32 ulp of PIL's division at
-        # resolution 1 (and it resizes otherwise than PIL)
+    if _NATIVE_AVAILABLE() and _T_NATIVE_AVAILABLE():
+        # both loaders' native decoders: bit for bit, resized or not (the
+        # native resize is not PIL's)
         with monkeypatch.context() as m:
             m.setattr(horizongs_tpu.native, "available", _NATIVE_AVAILABLE)
+            m.setattr(horizongs_tpu_torch.native, "available",
+                      _T_NATIVE_AVAILABLE)
             native = jcb.camera_list(infos, args_j, 1.0)
-        for g, w in zip(got, native):
-            np.testing.assert_allclose(g.image.numpy(), np.asarray(w.image),
-                                       rtol=0, atol=6e-8)
+            native_t = tcb.camera_list(infos, args_t, 1.0, device="cpu")
+        for g, w in zip(native_t, native):
+            _assert_cameras_equal(g, w)
     want = jcb.camera_list(infos, args_j, 1.0)
     assert {c.image_type for c in got} == {"aerial", "street"}
     for g, w in zip(got, want):

@@ -67,9 +67,10 @@ def test_one_rank_collectives_are_identity(tmp_path):
 def test_mesh_check_rehearsal_on_cpu(tmp_path):
     """`tools/mesh_check` (the card's mesh harness) through
     `torch.distributed.run` on the CPU at a small size: a band case and a
-    duplicated-view case held to the single-device step, each rank's
-    record written, the band's instances as counted, and the captured
-    kernel arguments those of the band (its rows, its records)."""
+    duplicated-view case held to the single-device step at the trainer's
+    calibrated capacities (nothing dropped), each rank's record written,
+    the band's instances as counted, and the captured kernel arguments
+    those of the band (its rows, its records)."""
     import json
     out = tmp_path / "out"
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
@@ -91,6 +92,9 @@ def test_mesh_check_rehearsal_on_cpu(tmp_path):
         for r in ranks:
             c = r["cases"][name]
             assert c["n_instances"] == c["band_instances_counted"]
+            assert c["n_instances"] <= c["instance_cap"]
+            assert (c["band_cap"] is None) == (name == "2x1:duplicate")
+            assert c["dropped"] == 0 and max(c["dropped_timed"]) == 0
             assert c["launches_grad"] == [0, 0]     # the plain versions
     assert len(ranks[0]["cases"]["1x2"]["band_loads"]) == 2
     for r in range(2):

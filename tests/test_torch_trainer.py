@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import horizongs_tpu.native
+import horizongs_tpu_torch.native
 import horizongs_tpu.train.trainer as jtrainer_mod
 from horizongs_tpu.config import make_model_params as j_model_params
 from horizongs_tpu.config import make_optim as j_make_optim
@@ -53,8 +54,10 @@ SCENE = dict(name="GaussianLoDModel", feat_dim=8, n_offsets=4, view_dim=3,
 
 @pytest.fixture(autouse=True)
 def pil_only(monkeypatch):
-    """The JAX loader through PIL, as the port's (`test_torch_data.py`)."""
+    """Both packages' loaders through PIL (`test_torch_data.py`)."""
     monkeypatch.setattr(horizongs_tpu.native, "available", lambda: False)
+    monkeypatch.setattr(horizongs_tpu_torch.native, "available",
+                        lambda: False)
 
 
 # --- camera picks and overflow margins ---------------------------------------
