@@ -196,10 +196,26 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                counts are set to 0 before b-e and read after, each
                launched process's from its start to its end (the tools'
                records), and no other kernel runs
- 15. report    per-view and per-step timings, the layer breakdowns, the
+ 15. scaling   `tools/bench_scaling` through its command line, each
+               mode with the counts set to 0 just before it and read just
+               after (the sweep's ranks count their own and write them to
+               its file): a. the sweep `--devices 1,2` at 512x512 (one
+               NCCL rank; two gloo ranks on this card: the 1x2 band step
+               and its 2x1 pure-DP control; `1,2,4` on NCCL when the
+               machine shows four cards); b. `--tpu_overhead` (the band
+               step at 1x1 against `TrainStep` at 1920x1088); c.
+               `--band_times` at 1920x1088 on 6 street views; d.
+               `--project 4` and `--project 8` on b's and c's records; e.
+               `--imbalance` at 512x512. K1 and K2 once a step a rank in
+               a-c and no kernel in d-e, nothing dropped after the tool's
+               re-runs at wider margins, the count guard held; then K1 and
+               K2 against their plain versions on the arguments of one
+               cropped step of c (the tallest n_model=8 band of view 0, a
+               shifted principal point); timed
+ 16. report    per-view and per-step timings, the layer breakdowns, the
                densify epoch, the train CLI, the serve CLI, the chunks,
-               the mesh, the rest, the tools' tables, the kernels line,
-               and last the device line
+               the mesh, the rest, the scaling tool, the tools' tables,
+               the kernels line, and last the device line
 
 Prints nothing after a failure and exits non-zero without a card or
 without the package beside it. `--mesh-cli` is the worker mode phase 13
@@ -2546,6 +2562,215 @@ def _densify_bench(work):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the mesh's scaling tool (tools/bench_scaling.py)
+# ---------------------------------------------------------------------------
+
+def _parts(row):
+    """A sweep row's configurations: the band step, and its pure-DP
+    control where the row has one."""
+    return [("band", row)] + ([("pure_dp", row["pure_dp"])]
+                              if "pure_dp" in row else [])
+
+
+def _band_crop_vs_plain(bt, work, dev):
+    """K1 and K2 against their plain versions on the arguments of one
+    cropped step of `--band_times`: the tallest band of n_model 8
+    (balanced bounds; of equals the lowest) on view 0, the principal
+    point moved up by the band's first row, at the record's capacity."""
+    import torch
+    from horizongs_tpu_torch.data.synthetic import orbit_cameras
+    from horizongs_tpu_torch.ops.raster_fields import backend_tile_shape
+    from horizongs_tpu_torch.tools import bench_scaling
+    from horizongs_tpu_torch.tools.mesh_check import _Capture, _kernels
+    from horizongs_tpu_torch.train.step import build_train_step, camera_tensors
+    W, H = bt["width"], bt["height"]
+    _, tile_h = backend_tile_shape("3D")
+    ent = bt["bands"]["8"]["balanced"]
+    # the tallest band, the lowest of equals: a principal point moved up
+    b = max(range(8), key=lambda i: (ent["rows"][i], i))
+    y0 = ent["bounds"][b] * tile_h
+    h = min(ent["rows"][b] * tile_h, H - y0)
+    _require(y0 > 0 and h > 0, f"scaling: band {b} of {ent['bounds']}")
+    cfg, ts, _ = bench_scaling._scene(W, H, bt["n_points"], bt["capacity"],
+                                      1, 1, dev)
+    cam = orbit_cameras(bt["views"], radius=2.0, height_z=-0.15, width=W,
+                        height=H, device=dev)[0]
+    step = build_train_step(cfg, bench_scaling._zero_lr_optim(), h, W,
+                            add_prefilter=False,
+                            instance_cap=ent["instance_cap"])
+    _, names = _kernels("3D")
+    with _Capture(names) as cap:
+        _, m = step(ts, camera_tensors(bench_scaling._crop_camera(cam, y0, h),
+                                       do_stats=True), 1)
+        float(m["loss"])
+    path = work / "capture_band_crop.pt"
+    torch.save({"gs": "3D", "fwd": cap.calls[names[0]][0],
+                "bwd": cap.calls[names[1]][0]}, path)
+    ok, errs = _band_kernels_vs_plain(path, dev)
+    _require(ok, f"scaling: a kernel disagrees with its plain version on "
+             f"the band crop's inputs: {errs}")
+    errs.update(band=b, y0_px=y0, height_px=h, dropped=int(m["n_dropped"]))
+    return errs
+
+
+def _scaling(kernels, dev, n_cards):
+    """Phase 15: `tools/bench_scaling` through its command line, each mode
+    with the counts set to 0 just before it and read just after (the
+    sweep's ranks count their own, from their process's start): a. the
+    sweep `--devices 1,2` at 512x512 (two gloo ranks on one card: the 1x2
+    band step and its 2x1 pure-DP control; `1,2,4` over NCCL with four
+    cards); b. `--tpu_overhead` at 1920x1088; c. `--band_times` at
+    1920x1088 (6 views); d. `--project 4` and `--project 8` on b's and
+    c's records; e. `--imbalance` at 512x512. K1 and K2 once a step a
+    rank in a-c, no kernel in d-e, nothing dropped after the tool's
+    re-runs, the count guard held; then K1 and K2 against their plain
+    versions on a band crop of c. Returns the report and the K1-K4
+    launches of a-c."""
+    import shutil
+    import tempfile
+    from horizongs_tpu_torch.tools import bench_scaling
+    n_k = len(kernels)
+    zero = (0,) * n_k
+    launches = [0] * n_k
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_scaling_"))
+    out = work / "scaling.json"
+    rep, secs = {}, {}
+
+    def run(name, *argv):
+        _reset(kernels)
+        t0 = time.perf_counter()
+        rc = bench_scaling.main([*argv, "--out", str(out)])
+        secs[name] = time.perf_counter() - t0
+        _require(rc == 0, f"scaling {name}: rc {rc}")
+        with open(out) as f:
+            return json.load(f), _counts(kernels)
+
+    try:
+        # a. the sweep
+        devices = "1,2,4" if n_cards >= 4 else "1,2"
+        rec, here = run("sweep", "--devices", devices, "--iters", "10")
+        _require(here == zero, f"scaling sweep: this process launched {here}")
+        rows = rec["results"]
+        _require([r["devices"] for r in rows]
+                 == [int(x) for x in devices.split(",")],
+                 f"scaling sweep: rows {[r['devices'] for r in rows]}")
+        _require(all("pure_dp" in r for r in rows[1:]),
+                 "scaling sweep: a row without its pure-DP control")
+        _require(rec["shared_card"] == (n_cards < 2),
+                 f"scaling sweep: shared_card {rec['shared_card']} on "
+                 f"{n_cards} card(s)")
+        for r in rows:
+            for name, p in _parts(r):
+                _require(p["n_dropped"] == 0, f"scaling sweep {r['devices']}"
+                         f" {name}: dropped {p['n_dropped']} at margin "
+                         f"{p['margin']}")
+                for k, n in zip(p["launches_per_rank"],
+                                p["steps_run_per_rank"]):
+                    _require(k == [n, n], f"scaling sweep {r['devices']} "
+                             f"{name}: a rank launched {k} in {n} steps")
+                    launches[0] += k[0]
+                    launches[1] += k[1]
+        rep["sweep"] = rec
+        for r in rows:
+            print(f"scaling: sweep {r['devices']} rank(s), mesh {r['mesh']} "
+                  f"({r['backend']}) p50 {r['step_ms']:.2f} ms ("
+                  + " / ".join(f"{x:.2f}" for x in r["step_ms_p50_per_rank"])
+                  + f"), {r['rays_per_sec']:,.0f} rays/s, instance_cap "
+                  f"{r['instance_cap']}, band_cap {r['band_cap']}"
+                  + (f"; pure-DP {r['pure_dp']['mesh']} p50 "
+                     f"{r['pure_dp']['step_ms']:.2f} ms, band/DP "
+                     f"{r['efficiency_vs_pure_dp']:.3f}" if "pure_dp" in r
+                     else "")
+                  + f"; efficiency {r['efficiency']:.3f}", flush=True)
+
+        # b. the 1x1 band overhead
+        rec, here = run("overhead", "--tpu_overhead")
+        o = rec["card_1x1_overhead"]
+        for k in ("plain", "band"):
+            n = o["steps_run"][k]
+            _require(o["launches"][k] == [n, n] and o["n_dropped"][k] == 0,
+                     f"scaling overhead {k}: launched {o['launches'][k]} in "
+                     f"{n} steps, dropped {o['n_dropped'][k]}")
+        _require(list(here[:2]) == [sum(o["launches"][k][i]
+                                         for k in ("plain", "band"))
+                                     for i in (0, 1)] and here[2:] == zero[2:],
+                 f"scaling overhead: this process launched {here}")
+        _require(math.isfinite(o["band_overhead_ratio"]),
+                 f"scaling overhead: ratio {o['band_overhead_ratio']}")
+        launches[0] += here[0]
+        launches[1] += here[1]
+        rep["overhead"] = o
+        print(f"scaling: 1x1 overhead at {o['width']}x{o['height']}: plain "
+              f"{o['plain_step_ms']:.2f} ms, band {o['band_step_ms']:.2f} ms"
+              f", ratio {o['band_overhead_ratio']:.4f} (rounds plain "
+              f"{[round(x, 2) for x in o['rounds_ms']['plain']]}, band "
+              f"{[round(x, 2) for x in o['rounds_ms']['band']]})",
+              flush=True)
+
+        # c. the per-band step times
+        rec, here = run("band_times", "--band_times")
+        bt = rec["band_time_skew"]
+        n = bt["steps_run"]
+        _require(bt["launches"] == [n, n] and list(here[:2]) == [n, n]
+                 and here[2:] == zero[2:],
+                 f"scaling band times: launched {bt['launches']} ({here}) "
+                 f"in {n} steps")
+        _require(bt["n_dropped"] == 0, f"scaling band times: dropped "
+                 f"{bt['n_dropped']} after {bt['reruns']} re-runs")
+        g = bt["count_guard"]
+        _require(0.9 <= g["ratio"] <= 1.1, f"scaling count guard {g}")
+        launches[0] += n
+        launches[1] += n
+        rep["band_times"] = bt
+        fit = bt["fit"]
+        print(f"scaling: band times at {bt['width']}x{bt['height']}, "
+              f"{bt['views']} views, {n} steps: count guard {g['analytic']} "
+              f"/ {g['production']} ({g['ratio']:.4f}); whole views "
+              f"{bt['per_view_1080p']['step_ms']} ms (worst/mean "
+              f"{bt['per_view_1080p']['time_worst_over_mean']:.3f}); fit "
+              f"t = {fit['c0_ms']} + {fit['c_row_ms_per_tile_row']} x rows "
+              f"+ {fit['c_rec_ms_per_record'] * 1e3:.5f} x krecords ms (rms "
+              f"{fit['rms_ms']}, load share {fit['load_fraction_f']}); "
+              "worst/mean " + ", ".join(
+                  f"{m} {v} {e[v]['time_worst_over_mean_max']:.3f}"
+                  for m, e in bt["bands"].items()
+                  for v in ("uniform", "balanced")),
+              flush=True)
+        _reset(kernels)
+        rep["band_crop_vs_plain"] = errs = _band_crop_vs_plain(bt, work, dev)
+        print(f"scaling: K1/K2 on the tallest n_model=8 band of view 0 "
+              f"(rows {errs['y0_px']}-{errs['y0_px'] + errs['height_px']}, "
+              f"{errs['shape']}) within tolerance of the plain versions: "
+              f"K1 acc {errs['fwd']['acc_rgb_alpha']:.3g}, K2 "
+              f"{errs['bwd']['max_abs_err']:.3g}", flush=True)
+
+        # d. the projection and e. the imbalance: counts only
+        for n_p in (4, 8):
+            rec, here = run(f"project{n_p}", "--project", str(n_p))
+            _require(here == zero, f"scaling project {n_p}: launched {here}")
+            pr = rep[f"project{n_p}"] = rec[f"projected_efficiency_{n_p}card"]
+            print(f"scaling: projected {n_p} cards (NVLink "
+                  f"{pr['basis']['link_bw_bytes_per_s_one_way'] / 1e9:.0f} "
+                  f"GB/s each way): " + ", ".join(
+                      f"{r['mesh']} {r['projected_efficiency']:.3f} (t_comm "
+                      f"{r['t_comm_ms']:.4f} ms)" for r in pr["meshes"]),
+                  flush=True)
+        rec, here = run("imbalance", "--imbalance")
+        _require(here == zero, f"scaling imbalance: launched {here}")
+        im = rep["imbalance"] = rec["load_imbalance"]
+        print(f"scaling: imbalance at {im['width']}x{im['height']}: views "
+              f"worst/mean {im['dp_view_imbalance']['worst_over_mean']:.3f}; "
+              "bands uniform -> balanced " + ", ".join(
+                  f"{m}: {e['worst_over_mean_max']:.3f} -> "
+                  f"{e['balanced_worst_over_mean_max']:.3f}"
+                  for m, e in im["band_imbalance"].items()), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rep["seconds_by_mode"] = secs
+    return rep, tuple(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3232,11 +3457,22 @@ def main() -> int:
     print(f"rest: {t14[0] + t14[1]:.1f} s (native {t14[0]:.1f} s)",
           flush=True)
 
-    # 15. report -------------------------------------------------------------
+    # 15. the mesh's scaling tool: the sweep, the 1x1 overhead, the band
+    # times, the projections and the imbalance ---------------------------
+    t0 = time.perf_counter()
+    rep15, launches15 = _scaling(ALL, dev, torch.cuda.device_count())
+    t15 = time.perf_counter() - t0
+    launches15 = launches15[:2] + (0, 0, *NO_TOOLS)
+    print(f"scaling: {t15:.1f} s (" + ", ".join(
+        f"{k} {v:.1f}" for k, v in rep15["seconds_by_mode"].items())
+        + " s)", flush=True)
+
+    # 16. report -------------------------------------------------------------
     paths = {"serve_3dgs": sv["launches"], "train_3dgs": tr["launches"],
              "serve_2dgs": sv2["launches"], "train_2dgs": tr2["launches"],
              "train_cli": cli10["launches"], "serve_cli": launches11,
-             "chunks": launches12, "mesh": launches13, "rest": launches14}
+             "chunks": launches12, "mesh": launches13, "rest": launches14,
+             "scaling": launches15}
 
     def launches(i):
         return {p: n[i] for p, n in paths.items()}
@@ -3309,6 +3545,13 @@ def main() -> int:
         "native": rep14_native, "mesh_check_calibrated": rep14_mesh,
         "band_overhead": rep14_band, "convergence": rep14_conv,
         "densify_bench": rep14_dens}))
+    print(json.dumps({
+        "slice": "scaling: tools/bench_scaling sweep 512x512 (1x1 nccl, 1x2 "
+                 "and 2x1 gloo on one card), 1x1 overhead, band times, "
+                 "projections at 4 and 8 cards, imbalance (cuda)",
+        "card": card, "seconds": t15,
+        "launches": dict(zip(("K1", "K2", "K3", "K4"), launches15[:4])),
+        **rep15}))
     print(json.dumps({"slice": "tools T1-T3 (cuda)", "card": card,
                       "seconds": tools_s,
                       "T1_ms": t1_times, "T1_equal_l_sweep": t1_sweep,

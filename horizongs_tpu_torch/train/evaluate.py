@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from horizongs_tpu_torch.device import DeviceLike
+from horizongs_tpu_torch.device import DeviceLike, resolve_device
 from horizongs_tpu_torch.models.explicit import (
     count_explicit_instances,
     render_explicit,
@@ -160,12 +160,13 @@ def render_set(out_dir: str, name: str, iteration: int, cameras, cfg,
 
 def evaluate_sets(out_dir: str, iteration: int, renders, gts, types,
                   lpips_model=None, tag: str = "test", subsets=None,
-                  device: DeviceLike = "cpu"):
+                  device: DeviceLike = None):
     """PSNR/SSIM(/LPIPS) per aerial/street split -> results_<tag>.json
     (`metrics.py:52-148`, `train.py:520-669`), PSNR and SSIM computed on
-    `device`. Non-empty `subsets` tags (UCGS's held-out / +0.1m /
+    `device` (the card when None, as `device.resolve_device` rules). Non-empty `subsets` tags (UCGS's held-out / +0.1m /
     +0.1m+5° splits, `train.py:542-591`) each form a group of their own
     beside aerial/street."""
+    device = resolve_device(device)
     per_view = {"PSNR": {}, "SSIM": {}, "LPIPS": {}}
     groups = {"all": [], "aerial": [], "street": []}
     if subsets is None:

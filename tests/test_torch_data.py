@@ -367,7 +367,7 @@ def test_evaluation_matches(blender, tmp_path, f32_blur):
     assert min(rt[2]) > 0
     assert sorted(os.listdir(os.path.join(out_t, "test", "ours_5"))) == \
         sorted(os.listdir(os.path.join(out_j, "test", "ours_5")))
-    res_t = tev.evaluate_sets(out_t, 5, rt[0], rt[1], rt[4])
+    res_t = tev.evaluate_sets(out_t, 5, rt[0], rt[1], rt[4], device="cpu")
     res_j = jev.evaluate_sets(out_j, 5, rj[0], rj[1], rj[4])
     assert res_t.keys() == res_j.keys()
     with open(os.path.join(out_t, "per_view_test.json")) as f:

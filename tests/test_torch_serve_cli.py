@@ -129,7 +129,8 @@ def test_metrics_cli_scores_the_written_pngs(sh_model):
     renders, gts, names = read_images(os.path.join(it_dir, "renders"),
                                       os.path.join(it_dir, "gt"))
     assert names == ["00000.png", "00001.png"]
-    want = evaluate_sets("", 20, renders, gts, ["aerial"] * 2)["all"]
+    want = evaluate_sets("", 20, renders, gts, ["aerial"] * 2,
+                         device="cpu")["all"]
     assert res["n_views"] == 2 and math.isfinite(res["PSNR"])
     assert res["PSNR"] == want["PSNR"] and res["SSIM"] == want["SSIM"]
     assert res["LPIPS"] is None           # no VGG weights on this machine
