@@ -10,7 +10,12 @@ results_test.json. The run's directory gets the resolved config.yaml,
 cfg_args and a copy of this package's source under backup/.
 `--viewer_port` serves the model being trained to a viewer client,
 `--profile N` writes a `torch.profiler` trace of N iterations from
-iteration 20 into <model_path>/profile/, and `--detect_anomaly` turns on
+iteration 20 into <model_path>/profile/trace.json and, beside it,
+profile/spans.json: the port's spans of those iterations
+(`horizongs_tpu_torch.tracing`: `trainer.*`, `step.forward` /
+`backward` / `update`, `render.decode` / `bin` / `composite`, each
+with its iteration, parent, host ms and CUDA-event device ms) and its
+counters. `--detect_anomaly` turns on
 `torch.autograd.set_detect_anomaly` (the reference's `train.py:760`).
 `--wandb` logs to a wandb run (project "horizongs_tpu", rank 0) when the
 `wandb` package imports; without it the run logs "wandb unavailable" and
@@ -77,8 +82,9 @@ def main(argv=None):
                         "(reference network_gui, shipped disabled there)")
     parser.add_argument("--profile", type=int, default=0, metavar="N",
                         help="write a torch.profiler trace of N training "
-                        "iterations, from iteration 20, into "
-                        "<model_path>/profile/")
+                        "iterations, from iteration 20, and the port's "
+                        "spans of them into <model_path>/profile/ "
+                        "(trace.json, spans.json)")
     parser.add_argument("--detect_anomaly", action="store_true",
                         help="torch.autograd.set_detect_anomaly: the "
                         "backward names the forward op behind a NaN (the "

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from horizongs_tpu_torch import tracing
 from horizongs_tpu_torch.core.transforms import normalize_quat
 from horizongs_tpu_torch.device import DeviceLike, resolve_device
 from horizongs_tpu_torch.models.config import ModelConfig
@@ -120,6 +121,10 @@ def decode_neural_gaussians(
 ) -> DecodedGaussians:
     C, k = state.capacity, state.n_offsets
     feat = state.feat
+    if tracing.recording():
+        # the rows the MLPs below run over, and those the view needs
+        tracing.count("render.anchor_rows", feat.shape[0])
+        tracing.count("render.anchors_visible", anchor_mask.sum())
     ob_view = state.anchor - cam_center[None, :]
     ob_dist = torch.clamp_min(
         torch.linalg.norm(ob_view, dim=-1, keepdim=True), 1e-8)

@@ -20,6 +20,12 @@ package's routing fields and steps — `grad_slot`, `out_starts`, `inv_perm` and
 un-sort + cumsum of `_instance_grads_to_fields` — have no counterpart
 here. Without a gradient (serving under `torch.no_grad()`, or no input
 requiring one) autograd records no node, so nothing is kept for backward.
+
+Spans (`horizongs_tpu_torch.tracing`, while its recorder is on):
+`render.bin` around the projection, cull, tile spans, instance build and
+sort (`build_raster_inputs*`), `render.composite` around the compositor
+and the assembly of the image; counters `render.instances` and
+`render.instance_cap`.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from horizongs_tpu_torch import tracing
 from horizongs_tpu_torch.ops.binning import (
     TileInstances,
     build_tile_instances,
@@ -179,23 +186,34 @@ def rasterize_cuda_3dgs(
     `rasterize_pallas_3dgs`. `means2d_probe`: see `build_raster_inputs`."""
     if render_mode not in ("RGB", "RGB+D", "RGB+ED"):
         raise ValueError(f"Unknown render_mode: {render_mode}")
-    ri = build_raster_inputs(means, quats, scales, opacities, colors,
-                             viewmat, K, width, height, sh_degree=sh_degree,
-                             cap=cap, means2d_probe=means2d_probe)
+    with tracing.span("render.bin"):
+        ri = build_raster_inputs(means, quats, scales, opacities, colors,
+                                 viewmat, K, width, height,
+                                 sh_degree=sh_degree, cap=cap,
+                                 means2d_probe=means2d_probe)
+    _count_instances(ri.inst)
     grid = ri.grid
-    # (n_tiles, 5, P), (n_tiles, 2, P)
-    acc, logT2, _ = RasterCore.apply(ri.fields, ri.inst.gauss_id,
-                                     ri.inst.tile_starts, grid.n_tiles_x,
-                                     grid.n_tiles_y)
-    render, alphas = _assemble(acc[:, 0:3], acc[:, 4:5], acc[:, 3:4],
-                               logT2[:, 0:1], background, grid, width,
-                               height, render_mode)
+    with tracing.span("render.composite"):
+        # (n_tiles, 5, P), (n_tiles, 2, P)
+        acc, logT2, _ = RasterCore.apply(ri.fields, ri.inst.gauss_id,
+                                         ri.inst.tile_starts, grid.n_tiles_x,
+                                         grid.n_tiles_y)
+        render, alphas = _assemble(acc[:, 0:3], acc[:, 4:5], acc[:, 3:4],
+                                   logT2[:, 0:1], background, grid, width,
+                                   height, render_mode)
     proj = ri.proj
     info = {"radii": proj.radii, "means2d": proj.means2d,
             "depths": proj.depths, "conics": proj.conics,
             "n_instances": ri.inst.n_instances,
             "n_dropped": ri.inst.n_dropped}
     return render, alphas, info
+
+
+def _count_instances(inst) -> None:
+    """The view's tile instances (before any drop) and their capacity, as
+    the counters `render.instances` and `render.instance_cap`."""
+    tracing.count("render.instances", inst.n_instances)
+    tracing.count("render.instance_cap", inst.gauss_id.shape[0])
 
 
 def _assemble(color, alpha, depth, logT, background, grid: _TileGrid,
@@ -312,22 +330,25 @@ def rasterize_cuda_2dgs(
     distort (H, W, 1), median depth (H, W, 1), info)."""
     if render_mode not in ("RGB", "RGB+D", "RGB+ED"):
         raise ValueError(f"Unknown render_mode: {render_mode}")
-    ri = build_raster_inputs_2dgs(means, quats, scales, opacities, colors,
-                                  viewmat, K, width, height,
-                                  sh_degree=sh_degree, cap=cap,
-                                  means2d_probe=means2d_probe)
+    with tracing.span("render.bin"):
+        ri = build_raster_inputs_2dgs(means, quats, scales, opacities,
+                                      colors, viewmat, K, width, height,
+                                      sh_degree=sh_degree, cap=cap,
+                                      means2d_probe=means2d_probe)
+    _count_instances(ri.inst)
     grid = ri.grid
-    # (n_tiles, 7, P), (n_tiles, 4, P)
-    acc, aux, _ = RasterCore2D.apply(ri.fields, ri.inst.gauss_id,
-                                     ri.inst.tile_starts, grid.n_tiles_x,
-                                     grid.n_tiles_y)
-    render, alphas = _assemble(acc[:, 0:3], acc[:, 6:7], aux[:, 1:2],
-                               aux[:, 0:1], background, grid, width, height,
-                               render_mode)
-    normals, distort, median = (
-        _tiles_to_image(rows.transpose(1, 2), grid, height, width)
-        for rows in (acc[:, 3:6], aux[:, 2:3], aux[:, 3:4]))
-    normals_from_depth = depth_to_normals(median[..., 0], K)
+    with tracing.span("render.composite"):
+        # (n_tiles, 7, P), (n_tiles, 4, P)
+        acc, aux, _ = RasterCore2D.apply(ri.fields, ri.inst.gauss_id,
+                                         ri.inst.tile_starts, grid.n_tiles_x,
+                                         grid.n_tiles_y)
+        render, alphas = _assemble(acc[:, 0:3], acc[:, 6:7], aux[:, 1:2],
+                                   aux[:, 0:1], background, grid, width,
+                                   height, render_mode)
+        normals, distort, median = (
+            _tiles_to_image(rows.transpose(1, 2), grid, height, width)
+            for rows in (acc[:, 3:6], aux[:, 2:3], aux[:, 3:4]))
+        normals_from_depth = depth_to_normals(median[..., 0], K)
     proj = ri.proj
     info = {"radii": proj.radii, "means2d": proj.means2d,
             "depths": proj.depths, "n_instances": ri.inst.n_instances,

@@ -12,6 +12,13 @@ kept for a backward pass. 2DGS adds `render_normals`,
 `render_normals_from_depth`, `render_distort` and `render_median_depth`
 to the output.
 
+While the recorder of `horizongs_tpu_torch.tracing` is on, `decode_view`
+is the span `render.decode` (the LOD mask, the prefilter and the MLP
+decode) and the cuda path adds `render.bin` and `render.composite`;
+the decode counts `render.anchor_rows` (the rows it runs over) and
+`render.anchors_visible` (the rows the LOD mask and the prefilter keep),
+the cuda path `render.instances` and `render.instance_cap`.
+
 `means2d_probe` is the handle for the screen-space gradients the
 densification statistics need (the JAX package's argument of the same
 name, in place of torch's `means2d.retain_grad()`): pass a zero (C*k, 2)
@@ -24,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from horizongs_tpu_torch import tracing
 from horizongs_tpu_torch.core.cameras import Camera
 from horizongs_tpu_torch.models.anchors import (
     AnchorState,
@@ -74,16 +82,17 @@ def decode_view(cam: Camera, cfg: ModelConfig, mlps: MlpDecoders,
                 state: AnchorState, add_prefilter: bool = True,
                 scaling_modifier: float = 1.0) -> DecodedGaussians:
     """The gaussians one view sees: LOD mask, prefilter, decode, the
-    scales times `scaling_modifier`."""
-    anchor_mask, smooth = anchor_lod_mask(cfg, state, cam.cam_center,
-                                          cam.resolution_scale)
-    if add_prefilter:
-        anchor_mask = prefilter_anchors(cfg, state, cam, anchor_mask)
-    dec = decode_neural_gaussians(cfg, mlps, state, cam.cam_center,
-                                  anchor_mask, smooth,
-                                  appearance_id=int(cam.uid))
-    if scaling_modifier != 1.0:
-        dec = dec._replace(scales=dec.scales * scaling_modifier)
+    scales times `scaling_modifier` (span `render.decode`)."""
+    with tracing.span("render.decode"):
+        anchor_mask, smooth = anchor_lod_mask(cfg, state, cam.cam_center,
+                                              cam.resolution_scale)
+        if add_prefilter:
+            anchor_mask = prefilter_anchors(cfg, state, cam, anchor_mask)
+        dec = decode_neural_gaussians(cfg, mlps, state, cam.cam_center,
+                                      anchor_mask, smooth,
+                                      appearance_id=int(cam.uid))
+        if scaling_modifier != 1.0:
+            dec = dec._replace(scales=dec.scales * scaling_modifier)
     return dec
 
 

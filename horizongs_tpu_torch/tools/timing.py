@@ -34,15 +34,31 @@ def best_ms(fn, iters: int = 20, rounds: int = 3) -> float:
     return best
 
 
+def busy_union(intervals) -> float:
+    """The length of the union of (start, end) intervals: time covered
+    by at least one of them, so two operations that overlap (on two
+    streams, or one inside another) count once."""
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
 def device_profile(fn) -> dict:
     """One call of `fn` under torch.profiler (made again, at most twice,
     where the trace holds no kernel), with no warm-up call (the caller
-    makes one where it needs it): the host's wall ms ("wall_ms"),
-    the device-busy ms, the kernels' durations summed ("busy_ms"), and
-    each kernel's device ms by name ("by_name"). A call whose kernels take
-    a few microseconds costs the host about as much to launch, so CUDA
-    events around back-to-back calls would time the host; the profiler
-    reads each kernel's own start and end."""
+    makes one where it needs it): the host's wall ms ("wall_ms"), the
+    device-busy ms ("busy_ms": the union of the device operations'
+    intervals over every stream, `busy_union`), and each kernel's device
+    ms by name ("by_name", summed over its calls). A call whose kernels
+    take a few microseconds costs the host about as much to launch, so
+    CUDA events around back-to-back calls would time the host; the
+    profiler reads each kernel's own start and end."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     # the profiler now and then records none of a CUDA graph's kernels
@@ -54,13 +70,14 @@ def device_profile(fn) -> dict:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name = {}
+        by_name, spans = {}, []
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3)
+                spans.append((e.time_range.start, e.time_range.end))
         if by_name:
-            return {"wall_ms": wall_ms, "busy_ms": sum(by_name.values()),
+            return {"wall_ms": wall_ms, "busy_ms": busy_union(spans) / 1e3,
                     "by_name": by_name}
     raise RuntimeError("the profiler recorded no kernel on the device")
 

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from horizongs_tpu_torch import tracing
 from horizongs_tpu_torch.core.cameras import Camera
 from horizongs_tpu_torch.device import disable_tf32
 from horizongs_tpu_torch.models.anchors import AnchorState
@@ -198,7 +199,9 @@ class TrainStep:
     `build_train_step`. The step is three stages, which a caller may also
     run one by one (to time them): `forward` (render and loss), `backward`
     (autograd, K2 or K4 for the compositor) and `update` (Adam, statistics,
-    metrics)."""
+    metrics), each inside its span (`step.forward`, `step.backward`,
+    `step.update`; `horizongs_tpu_torch.tracing`), the iteration its
+    `request`."""
 
     def __init__(self, cfg: ModelConfig, opt, height: int, width: int,
                  spatial_lr_scale: float, frozen_mlps: bool,
@@ -222,6 +225,11 @@ class TrainStep:
     def forward(self, state: TrainState, cam: CameraTensors,
                 iteration: float):
         """Render and loss with the graph kept: (loss, aux, pkg, probe)."""
+        with tracing.span("step.forward", request=iteration):
+            return self._forward(state, cam, iteration)
+
+    def _forward(self, state: TrainState, cam: CameraTensors,
+                 iteration: float):
         cfg, opt = self.cfg, self.opt
         p = state.params
         dev = p.anchor.device
@@ -245,12 +253,14 @@ class TrainStep:
         return loss, aux, pkg, probe
 
     def backward(self, state: TrainState, loss: torch.Tensor,
-                 probe: torch.Tensor):
+                 probe: torch.Tensor, iteration: Optional[float] = None):
         """(grads per group, probe gradient (C*k, 2)); a tensor the loss
-        does not reach gets zeros."""
+        does not reach gets zeros. `iteration` is only its span's
+        `request`."""
         groups = state.params.groups()
         leaves = [t for ts in groups.values() for t in ts] + [probe]
-        flat = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with tracing.span("step.backward", request=iteration):
+            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
         flat = [torch.zeros_like(x) if g is None else g
                 for x, g in zip(leaves, flat)]
         grads: Groups = {}
@@ -264,6 +274,13 @@ class TrainStep:
                iteration: float, loss, aux, pkg, grads: Groups,
                probe_grad: torch.Tensor):
         """Adam (in place) and the statistics: (state, metrics)."""
+        with tracing.span("step.update", request=iteration):
+            return self._update(state, cam, iteration, loss, aux, pkg,
+                                grads, probe_grad)
+
+    def _update(self, state: TrainState, cam: CameraTensors,
+                iteration: float, loss, aux, pkg, grads: Groups,
+                probe_grad: torch.Tensor):
         lrs = lr_groups(group_lrs(self.opt, iteration,
                                   self.spatial_lr_scale),
                         frozen_mlps=self.frozen_mlps,
@@ -289,7 +306,7 @@ class TrainStep:
                        iteration: float):
         """(loss, aux, pkg, grads per group, probe gradient (C*k, 2))."""
         loss, aux, pkg, probe = self.forward(state, cam, iteration)
-        grads, probe_grad = self.backward(state, loss, probe)
+        grads, probe_grad = self.backward(state, loss, probe, iteration)
         return loss.detach(), aux, pkg, grads, probe_grad
 
     def __call__(self, state: TrainState, cam: CameraTensors,

@@ -21,7 +21,17 @@ reference trainer, `train.py:83-285`):
     iteration while no client is connected, else one request answered
     (`train.py:113-127`)
   * a `torch.profiler` trace of `profile_steps` = (first, n) iterations
-    into <model_path>/profile/trace.json
+    into <model_path>/profile/trace.json; while it records, the port's
+    spans (`horizongs_tpu_torch.tracing`) are on, and their record goes
+    beside it into profile/spans.json. The trainer's spans, each with the
+    iteration as its `request`: `trainer.pick` (the camera pick and
+    `camera_tensors`), `trainer.build_step` (a step's build, child
+    `trainer.calibrate` around its capacity, band-bound and band-cap
+    calibrations), `trainer.sync` (the one read of the loss and the
+    dropped counts, where the host waits for the device) and
+    `trainer.densify` (an epoch: the fine stage's roll-back and
+    `run_densify`, whose phases' ms go into `records["densify"]`); the
+    step adds `step.forward`, `step.backward`, `step.update`
   * a wandb run (`wandb_run`, rank 0): the JAX trainer's keys at its
     steps (the loss, PSNR and anchor count at each progress line, each
     milestone evaluation's L1 and PSNR and its first views' renders)
@@ -46,6 +56,7 @@ takes it for a perfect match (ROADMAP §3).
 """
 from __future__ import annotations
 
+import json
 import math
 import os
 import random
@@ -56,6 +67,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from horizongs_tpu_torch import tracing
 from horizongs_tpu_torch.io.checkpoints import (
     load_sharded_checkpoint,
     load_train_checkpoint,
@@ -159,6 +171,8 @@ class Trainer:
         # (first iteration, iterations) of a torch.profiler trace
         self.profile_steps = profile_steps
         self._profiler = None
+        # the iteration under way: the `request` of the step build's span
+        self._iteration = None
         self.viewer = None
         self._viewer_caps = {}
         if viewer_port is not None:
@@ -344,35 +358,40 @@ class Trainer:
         key = (H, W, self.state.params.anchor.shape[0],
                self.active_sh_degree, self.add_prefilter)
         if key not in self._steps:
+            with tracing.span("trainer.build_step", request=self._iteration):
+                self._steps[key] = self._build_step(H, W)
+        return self._steps[key]
+
+    def _build_step(self, H, W):
+        """The step for (H, W), its capacities calibrated on the current
+        table."""
+        with tracing.span("trainer.calibrate"):
             host = self._calib_host_inputs()
             bounds = self._calibrate_band_bounds(H, W, host=host)
             cap = self._calibrate_cap(H, W, host=host, band_bounds=bounds)
-            if cap is not None:
-                self.log(f"instance capacity for {W}x{H}: {cap}")
-            kw = dict(spatial_lr_scale=self.scene.cameras_extent,
-                      frozen_mlps=self.scene.frozen_mlps,
-                      add_prefilter=self.add_prefilter,
-                      active_sh_degree=self.active_sh_degree,
-                      background=self.scene.background,
-                      frozen_appearance=self.scene.frozen_appearance,
-                      instance_cap=cap)
-            if self.mesh is None:
-                self._steps[key] = build_train_step(
-                    self.cfg, self.op, H, W, rasterizer=self.rasterizer, **kw)
-            else:
-                # the sharded step composites through the record boundary
-                # (K1/K2, K3/K4): the dense oracle has none to exchange
-                from horizongs_tpu_torch.parallel.step import (
-                    build_sharded_train_step)
-                band_cap = self._calibrate_band_cap(H, W, band_bounds=bounds,
-                                                    host=host)
-                if band_cap is not None:
-                    self.log(f"band-exchange capacity for {W}x{H}: "
-                             f"{band_cap}")
-                self._steps[key] = build_sharded_train_step(
-                    self.cfg, self.op, self.mesh, H, W, band_cap=band_cap,
-                    band_bounds=bounds, **kw)
-        return self._steps[key]
+            band_cap = (None if self.mesh is None else
+                        self._calibrate_band_cap(H, W, band_bounds=bounds,
+                                                 host=host))
+        if cap is not None:
+            self.log(f"instance capacity for {W}x{H}: {cap}")
+        kw = dict(spatial_lr_scale=self.scene.cameras_extent,
+                  frozen_mlps=self.scene.frozen_mlps,
+                  add_prefilter=self.add_prefilter,
+                  active_sh_degree=self.active_sh_degree,
+                  background=self.scene.background,
+                  frozen_appearance=self.scene.frozen_appearance,
+                  instance_cap=cap)
+        if self.mesh is None:
+            return build_train_step(self.cfg, self.op, H, W,
+                                    rasterizer=self.rasterizer, **kw)
+        # the sharded step composites through the record boundary (K1/K2,
+        # K3/K4): the dense oracle has none to exchange
+        from horizongs_tpu_torch.parallel.step import build_sharded_train_step
+        if band_cap is not None:
+            self.log(f"band-exchange capacity for {W}x{H}: {band_cap}")
+        return build_sharded_train_step(self.cfg, self.op, self.mesh, H, W,
+                                        band_cap=band_cap,
+                                        band_bounds=bounds, **kw)
 
     def _ensure_view_costs(self, H, W) -> None:
         """Each train view's tile-instance count at (H, W), keyed by (uid,
@@ -502,6 +521,8 @@ class Trainer:
         out = os.path.join(self.scene.model_path, "profile")
         os.makedirs(out, exist_ok=True)
         self._profiler.export_chrome_trace(os.path.join(out, "trace.json"))
+        with open(os.path.join(out, "spans.json"), "w") as f:
+            json.dump(tracing.snapshot(), f)
         self._profiler = None
         self.log("profiler trace stopped")
 
@@ -589,6 +610,7 @@ class Trainer:
 
         for it in range(first_iter, iterations + 1):
             t_it = time.perf_counter()
+            self._iteration = it
             if self.viewer is not None:
                 self.viewer.poll(self._viewer_render, self.scene.model_path)
             if self.profile_steps is not None and self.is_main:
@@ -614,26 +636,30 @@ class Trainer:
                     (c.image_type == "aerial" and pp.aerial_densify)
                     or (c.image_type == "street" and pp.street_densify))
 
-            if self.mesh is None:
-                cam = self._pick_camera(stacks)
-                ct = camera_tensors(cam, do_stats=gate(cam))
-                n_stat_views = int(gate(cam))
-            else:
-                cams, wts = self._pick_batch(stacks, self.mesh.shape["data"])
-                cam = cams[0]
-                ct = [camera_tensors(c, do_stats=gate(c), loss_weight=w)
-                      for c, w in zip(cams, wts)]
-                n_stat_views = sum(int(gate(c)) for c in cams)
+            with tracing.span("trainer.pick", request=it):
+                if self.mesh is None:
+                    cam = self._pick_camera(stacks)
+                    ct = camera_tensors(cam, do_stats=gate(cam))
+                    n_stat_views = int(gate(cam))
+                else:
+                    cams, wts = self._pick_batch(stacks,
+                                                 self.mesh.shape["data"])
+                    cam = cams[0]
+                    ct = [camera_tensors(c, do_stats=gate(c), loss_weight=w)
+                          for c, w in zip(cams, wts)]
+                    n_stat_views = sum(int(gate(c)) for c in cams)
             step = self._step_fn(cam.height, cam.width)
             t_step = time.perf_counter()
             self.state, metrics = step(self.state, ct, it)
             # one host sync for the loss and the dropped counts
-            zero = torch.zeros((), device=metrics["loss"].device)
-            loss, d_inst, d_exch = torch.stack(
-                [metrics["loss"].double(),
-                 metrics.get("n_dropped_instances",
-                             metrics["n_dropped"]).double(),
-                 metrics.get("n_dropped_exchange", zero).double()]).tolist()
+            with tracing.span("trainer.sync", request=it):
+                zero = torch.zeros((), device=metrics["loss"].device)
+                loss, d_inst, d_exch = torch.stack(
+                    [metrics["loss"].double(),
+                     metrics.get("n_dropped_instances",
+                                 metrics["n_dropped"]).double(),
+                     metrics.get("n_dropped_exchange", zero).double()]
+                ).tolist()
             self.records["step_ms"].append(
                 (time.perf_counter() - t_step) * 1e3)
             densify_cnt += n_stat_views
@@ -670,7 +696,8 @@ class Trainer:
                         and densify_cnt // op.update_interval
                         > densify_epochs):
                     densify_epochs = densify_cnt // op.update_interval
-                    self._densify(it)
+                    with tracing.span("trainer.densify", request=it):
+                        self._densify(it)
             elif it == op.update_until:
                 st = self._host_state()
                 if self.scene.base is not None:

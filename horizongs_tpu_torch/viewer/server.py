@@ -20,6 +20,12 @@ the JAX package: it calibrates the instance capacity per resolution and
 renders a request again with a recalibrated one when it overflowed, as
 `train.evaluate.render_set` does, so it never sends a frame that dropped
 instances. It may be handed a bound `ViewerServer` (port 0 included).
+
+Spans (`horizongs_tpu_torch.tracing`, while a profiler records), each
+frame's with the server's frame counter as its `request`:
+`viewer.receive` (the read of a message that has begun to arrive),
+`viewer.render` (the render callback, `render_request`),
+`viewer.quantize` and `viewer.send`.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from horizongs_tpu_torch import tracing
 from horizongs_tpu_torch.cli.common import load_config
 from horizongs_tpu_torch.core.cameras import Camera
 from horizongs_tpu_torch.data.scene import Scene
@@ -60,6 +67,8 @@ class ViewerServer:
         self.listener.listen()
         self.listener.settimeout(0)        # non-blocking accept (poll)
         self.conn: Optional[socket.socket] = None
+        # messages received: the `request` of a frame's spans
+        self.frames = 0
 
     @property
     def bound_port(self) -> int:
@@ -77,19 +86,31 @@ class ViewerServer:
 
     def receive(self) -> Optional[dict]:
         """One message -> `parse_request`'s camera dict, or None for the
-        0x0 keep-alive resolution."""
-        n = int.from_bytes(_recv_exact(self.conn, 4), "little")
-        return parse_request(json.loads(_recv_exact(self.conn, n)
-                                        .decode("utf-8")))
+        0x0 keep-alive resolution. The span `viewer.receive` opens once
+        the message's length has arrived: a wait that ends in the poll's
+        timeout is no receive."""
+        head = _recv_exact(self.conn, 4)
+        with tracing.span("viewer.receive", request=self.frames + 1):
+            n = int.from_bytes(head, "little")
+            msg = json.loads(_recv_exact(self.conn, n).decode("utf-8"))
+        self.frames += 1
+        return parse_request(msg)
 
     def send_image(self, image: Optional[np.ndarray], verify: str) -> None:
         """image (H, W, 3) float [0, 1] -> raw bytes + verify string;
         image=None sends the verify frame alone (the keep-alive reply,
-        `network_gui.py:49-53`)."""
+        `network_gui.py:49-53`). Spans `viewer.quantize` (the wait for the
+        frame's last kernels, the copy to the host, the clip, scale and
+        cast) and `viewer.send`, one after the other."""
+        frame = None
         if image is not None:
-            self.conn.sendall(quantize(image).tobytes())
-        self.conn.sendall(len(verify).to_bytes(4, "little"))
-        self.conn.sendall(verify.encode("ascii"))
+            with tracing.span("viewer.quantize", request=self.frames):
+                frame = quantize(image)
+        with tracing.span("viewer.send", request=self.frames):
+            if frame is not None:
+                self.conn.sendall(frame.tobytes())
+            self.conn.sendall(len(verify).to_bytes(4, "little"))
+            self.conn.sendall(verify.encode("ascii"))
 
     def drop_client(self) -> None:
         if self.conn is not None:
@@ -106,7 +127,9 @@ class ViewerServer:
         """In-train poll (`train.py:114-127` semantics): with no client, one
         non-blocking accept; with one, answer a pending request with
         `render_cb(cam_dict) -> (H, W, 3)`, dropping the client on any
-        protocol error."""
+        protocol error. A frame's spans (`viewer.receive`, `viewer.render`
+        around `render_cb`, `viewer.quantize`, `viewer.send`) share the
+        frame counter as their `request`."""
         if not self.try_connect():
             return
         try:
@@ -118,7 +141,9 @@ class ViewerServer:
             finally:
                 self.conn.settimeout(None)
             if cam is not None:
-                self.send_image(render_cb(cam), verify)
+                with tracing.span("viewer.render", request=self.frames):
+                    image = render_cb(cam)
+                self.send_image(image, verify)
             else:
                 self.send_image(None, verify)
         except Exception:
@@ -258,10 +283,11 @@ def serve_model(model_path: str, host: str = "127.0.0.1", port: int = 6009,
             if cam_d is None:
                 srv.send_image(None, model_path)
                 continue
-            srv.send_image(render_request(cam_d, scene.cfg, mlps, state,
-                                          background, caps,
-                                          rasterizer=rasterizer),
-                           model_path)
+            with tracing.span("viewer.render", request=srv.frames):
+                image = render_request(cam_d, scene.cfg, mlps, state,
+                                       background, caps,
+                                       rasterizer=rasterizer)
+            srv.send_image(image, model_path)
             served += 1
     finally:
         srv.close()
