@@ -25,7 +25,8 @@ Spans (`horizongs_tpu_torch.tracing`, while a profiler records), each
 frame's with the server's frame counter as its `request`:
 `viewer.receive` (the read of a message that has begun to arrive),
 `viewer.render` (the render callback, `render_request`),
-`viewer.quantize` and `viewer.send`.
+`viewer.quantize` and `viewer.send`; counters `viewer.frames_quantized`
+and `viewer.frames_on_card` (`ViewerServer.send_image`).
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ from horizongs_tpu_torch.cli.common import load_config
 from horizongs_tpu_torch.core.cameras import Camera
 from horizongs_tpu_torch.data.scene import Scene
 from horizongs_tpu_torch.device import DeviceLike, resolve_device
+from horizongs_tpu_torch.ops.quantize import FrameQuantizer
 from horizongs_tpu_torch.ops.raster_cuda import suggest_instance_cap
 from horizongs_tpu_torch.render import count_render_instances, render
 
@@ -69,6 +71,7 @@ class ViewerServer:
         self.conn: Optional[socket.socket] = None
         # messages received: the `request` of a frame's spans
         self.frames = 0
+        self.quantize_on_card = FrameQuantizer()
 
     @property
     def bound_port(self) -> int:
@@ -99,16 +102,27 @@ class ViewerServer:
     def send_image(self, image: Optional[np.ndarray], verify: str) -> None:
         """image (H, W, 3) float [0, 1] -> raw bytes + verify string;
         image=None sends the verify frame alone (the keep-alive reply,
-        `network_gui.py:49-53`). Spans `viewer.quantize` (the wait for the
-        frame's last kernels, the copy to the host, the clip, scale and
-        cast) and `viewer.send`, one after the other."""
+        `network_gui.py:49-53`). A CUDA tensor is quantized on the card
+        (`ops.quantize.FrameQuantizer`, which takes (H, W, 3) float32), an
+        array or a CPU tensor by `quantize`, to the same bytes, sent in C
+        order from a view of the frame. Spans `viewer.quantize` (the wait
+        for the frame's last kernels, the quantize and the copy to the
+        host) and `viewer.send`, one after the other; counters
+        `viewer.frames_quantized` (every image frame) and
+        `viewer.frames_on_card` (those quantized on the card)."""
         frame = None
         if image is not None:
+            on_card = torch.is_tensor(image) and image.is_cuda
             with tracing.span("viewer.quantize", request=self.frames):
-                frame = quantize(image)
+                frame = (self.quantize_on_card(image) if on_card
+                         else quantize(image))
+            tracing.count("viewer.frames_quantized", 1)
+            if on_card:
+                tracing.count("viewer.frames_on_card", 1)
         with tracing.span("viewer.send", request=self.frames):
             if frame is not None:
-                self.conn.sendall(frame.tobytes())
+                self.conn.sendall(
+                    memoryview(np.ascontiguousarray(frame)).cast("B"))
             self.conn.sendall(len(verify).to_bytes(4, "little"))
             self.conn.sendall(verify.encode("ascii"))
 
@@ -198,7 +212,8 @@ def frame_message(msg: dict) -> bytes:
 
 
 def quantize(image) -> np.ndarray:
-    """(H, W, 3) float [0, 1] (array or tensor) -> the uint8 frame sent."""
+    """(H, W, 3) float [0, 1] (array or tensor) -> the uint8 frame sent:
+    the host's path, and the plain version of `ops.quantize`'s kernel."""
     if torch.is_tensor(image):
         image = image.detach().cpu().numpy()
     return (np.clip(np.asarray(image), 0.0, 1.0) * 255).astype(np.uint8)

@@ -6,6 +6,9 @@ The file imports no JAX, so on a GPU machine without it run it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+import socket
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -646,6 +649,128 @@ def test_grid_overhead_matches_plain(card, n_blocks):
     go.empty(n_blocks, card)
     torch.cuda.synchronize()
     assert go.KERNEL_EMPTY.launches == before + 1
+
+
+def _quantize_crafted(shape):
+    """(H, W, 3) float32 of every k/255 and its float32 neighbours on both
+    sides, out-of-range values, +-inf, NaN, -0.0 and denormals, tiled."""
+    k = np.arange(256, dtype=np.float32) / np.float32(255)
+    vals = np.concatenate([
+        k, np.nextafter(k, np.float32(-np.inf)),
+        np.nextafter(k, np.float32(np.inf)),
+        np.array([-1.0, -0.0, 0.0, 1.0, 1.5, 2.0, 255.0, 1e30, -1e30, np.inf,
+                  -np.inf, np.nan, 1e-45, -1e-45, 1e-38, 0.5], np.float32)])
+    n = int(np.prod(shape))
+    return torch.from_numpy(np.resize(vals, n).reshape(shape))
+
+
+def _sent_bytes(srv, image):
+    """The bytes `srv.send_image` puts on the wire for `image`."""
+    a, b = socket.socketpair()
+    srv.conn = a
+    got = bytearray()
+    reader = threading.Thread(target=lambda: got.extend(_read_all(b)))
+    reader.start()
+    try:
+        srv.send_image(image, "v")
+    finally:
+        srv.drop_client()
+        reader.join(timeout=30)
+        b.close()
+    assert not reader.is_alive()
+    return bytes(got)
+
+
+def _read_all(sock):
+    chunks = []
+    while chunk := sock.recv(1 << 20):
+        chunks.append(chunk)
+    return b"".join(chunks)
+
+
+@pytest.mark.cuda
+def test_frame_quantize_matches_numpy(card):
+    """The card's quantize gives numpy's bytes: crafted values (with a
+    ragged tail of 9 elements, and a frame of 15, all tail), a random
+    1080p frame, an RGB view of an (H, W, 4) render and an unaligned
+    view; two resolutions in turn, each with its buffers, and two frames
+    in a row from the same buffers."""
+    from horizongs_tpu_torch.ops.quantize import KERNEL, FrameQuantizer
+    from horizongs_tpu_torch.viewer.server import quantize
+    q = FrameQuantizer()
+    before = KERNEL.launches
+    gen = torch.Generator().manual_seed(7)
+    crafted = _quantize_crafted((7, 37, 3))
+    big = torch.rand((1080, 1920, 3), generator=gen) * 1.2 - 0.1
+    rgbd = torch.rand((64, 48, 4), generator=gen)
+    flat = torch.rand(5 * 9 * 3 + 1, generator=gen)
+    inputs = [crafted, big, crafted.flip(0).contiguous(),
+              _quantize_crafted((1, 5, 3)), rgbd.to(card)[..., :3],
+              flat.to(card)[1:].view(5, 9, 3)]
+    firsts = {}
+    for x in inputs:
+        want = quantize(x.cpu())
+        got = q(x.to(card))
+        assert got.dtype == np.uint8 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+        key = tuple(got.shape[:2])
+        if key in firsts:       # the same resolution: the same buffers
+            assert np.shares_memory(got, firsts[key])
+        firsts.setdefault(key, got)
+    assert len(q.buffers) == 5
+    assert KERNEL.launches == before + len(inputs)
+    assert not np.shares_memory(firsts[(7, 37)], firsts[(1080, 1920)])
+
+
+@pytest.mark.cuda
+def test_viewer_sends_a_render_quantized_on_the_card(card):
+    """A real `render_request` frame of a small scene goes through the
+    card's quantize: the bytes on the wire are numpy's of the same
+    render, and the counters say it was quantized on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from horizongs_tpu_torch import tracing
+    from horizongs_tpu_torch.models.anchors import init_anchor_state_from_points
+    from horizongs_tpu_torch.models.config import ModelConfig
+    from horizongs_tpu_torch.models.mlp import init_mlps
+    from horizongs_tpu_torch.viewer.server import (
+        ViewerServer,
+        parse_request,
+        quantize,
+        render_request,
+        request_message,
+    )
+    cfg = ModelConfig(voxel_size=0.1, fork=2, aerial_levels=2,
+                      street_levels=4, standard_dist=8.0,
+                      render_mode="RGB+ED")
+    pts = random_gaussians(500, seed=0, extent=0.8)["means"]
+    state = init_anchor_state_from_points(cfg, pts, device=card)
+    gen = torch.Generator().manual_seed(0)
+    state = state._replace(
+        feat=torch.randn(state.feat.shape, generator=gen).to(card),
+        offset=torch.randn(state.offset.shape, generator=gen).to(card))
+    mlps = init_mlps(cfg.feat_dim, cfg.view_dim, 0, cfg.n_offsets,
+                     cfg.color_dim, generator=gen, device=card)
+    cam = lookat_camera(width=96, height=64, eye=(0.5, -1.0, -3.5),
+                        device="cpu")
+    cam_d = parse_request(request_message(cam.viewmat.numpy(), cam.K.numpy(),
+                                          96, 64))
+    image = render_request(cam_d, cfg, mlps, state,
+                           torch.zeros(3, device=card), {})
+    assert image.is_cuda and float(image.max()) > 0
+    want = quantize(image.cpu())
+    srv = ViewerServer(port=0)
+    tracing.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            wire = _sent_bytes(srv, image)
+        counters = tracing.snapshot()["counters"]
+    finally:
+        tracing.reset()
+        srv.close()
+    assert wire == want.tobytes() + (1).to_bytes(4, "little") + b"v"
+    assert counters == {"viewer.frames_quantized": [1],
+                        "viewer.frames_on_card": [1]}
 
 
 @pytest.mark.cuda

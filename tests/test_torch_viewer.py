@@ -10,6 +10,7 @@ rtol 2e-4, alphas atol 2e-5)."""
 import socket
 import threading
 import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -118,6 +119,106 @@ def test_viewer_poll():
     th.join(timeout=5)
     srv.close()
     assert result["verify"] == "mp"
+
+
+def _sent_bytes(srv, image, verify="v"):
+    """The bytes `srv.send_image` puts on the wire for `image`."""
+    a, b = socket.socketpair()
+    srv.conn = a
+    got = bytearray()
+
+    def read():
+        while chunk := b.recv(1 << 16):
+            got.extend(chunk)
+    reader = threading.Thread(target=read)
+    reader.start()
+    try:
+        srv.send_image(image, verify)
+    finally:
+        srv.drop_client()
+        reader.join(timeout=30)
+        b.close()
+    assert not reader.is_alive()
+    return bytes(got)
+
+
+def _host_images():
+    rng = np.random.default_rng(4)
+    x = rng.uniform(-0.3, 1.3, (12, 20, 3))
+    x[0, :4, 0] = [np.nan, np.inf, -np.inf, -0.0]
+    rgbd = torch.from_numpy(rng.uniform(-0.3, 1.3, (12, 20, 4))
+                            .astype(np.float32))
+    return {"array_f64": x, "array_f32": x.astype(np.float32),
+            "cpu_tensor": torch.from_numpy(x.astype(np.float32)),
+            "cpu_tensor_rgb_of_rgbd": rgbd[..., :3],
+            "array_transposed": np.ascontiguousarray(
+                x.transpose(1, 0, 2)).transpose(1, 0, 2)}
+
+
+@pytest.mark.parametrize("name", sorted(_host_images()))
+def test_host_path_sends_numpy_bytes(name):
+    """Arrays and CPU tensors keep the numpy quantize (clip, x 255, cast),
+    and the frame's view on the wire is the bytes of `tobytes()`, in C
+    order for a transposed array too."""
+    from horizongs_tpu_torch.ops.quantize import KERNEL
+    image = _host_images()[name]
+    plain = np.asarray(image.numpy() if torch.is_tensor(image) else image)
+    with np.errstate(invalid="ignore"):
+        want = (np.clip(plain, 0.0, 1.0) * 255).astype(np.uint8)
+        np.testing.assert_array_equal(quantize(image), want)
+    srv = ViewerServer(port=0)
+    before = KERNEL.launches
+    try:
+        with np.errstate(invalid="ignore"):
+            got = _sent_bytes(srv, image, "model_x")
+    finally:
+        srv.close()
+    assert got == want.tobytes() + (7).to_bytes(4, "little") + b"model_x"
+    assert srv.quantize_on_card.buffers == {}
+    assert KERNEL.launches == before
+
+
+def test_quantize_counters_count_while_recording():
+    """`viewer.frames_quantized` counts each image frame and
+    `viewer.frames_on_card` those quantized on the card (none here) while
+    a profiler records; nothing is counted otherwise. The benchmark's
+    reader turns them into the share on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hgsbench.run import reader
+    from horizongs_tpu_torch import tracing
+    image = np.full((4, 6, 3), 0.25)
+    srv = ViewerServer(port=0)
+    tracing.reset()
+    try:
+        _sent_bytes(srv, image)
+        assert tracing.snapshot()["counters"] == {}
+        with profile(activities=[ProfilerActivity.CPU]):
+            _sent_bytes(srv, image)
+            _sent_bytes(srv, None)
+            _sent_bytes(srv, torch.from_numpy(image))
+        snap = tracing.snapshot()
+        _sent_bytes(srv, image)
+        assert tracing.snapshot()["counters"] == snap["counters"]
+    finally:
+        tracing.reset()
+        srv.close()
+    assert snap["counters"] == {"viewer.frames_quantized": [1, 1]}
+    run = SimpleNamespace(kind="view", program_spans=snap)
+    assert reader("viewer.quantize_card_pct")(run) == 0.0
+    run.program_spans = {"spans": [], "counters": {}}
+    assert reader("viewer.quantize_card_pct")(run) is None
+
+
+def test_card_quantize_imports_and_refuses_without_a_card():
+    """The wrapper module imports and builds nothing without a card; it
+    takes only an (H, W, 3) float32 CUDA tensor."""
+    from horizongs_tpu_torch.ops import quantize as card
+    q = card.FrameQuantizer()
+    for bad in (torch.zeros(4, 6, 3), np.zeros((4, 6, 3), np.float32)):
+        with pytest.raises(ValueError, match="float32 CUDA tensor"):
+            q(bad)
+    assert q.buffers == {} and card.KERNEL._fn is None
 
 
 def test_receive_matches_jax():
