@@ -21,14 +21,19 @@ from hgsbench.reference.cameras import Camera
 
 @contextlib.contextmanager
 def step_picks(trainer, picks: list):
-    """Append (iteration, view index) of every step the trainer takes."""
+    """Append (iteration, view index) of every step the trainer takes; under
+    a mesh, (iteration, [(view index, loss weight), ...]) of its batch."""
     orig = trainer._step_fn
 
     def step_fn(H, W):
         step = orig(H, W)
 
         def call(state, ct, it):
-            picks.append((int(it), int(ct.uid)))
+            if isinstance(ct, list):
+                picks.append((int(it), [(int(c.uid), float(c.loss_weight))
+                                        for c in ct]))
+            else:
+                picks.append((int(it), int(ct.uid)))
             return step(state, ct, it)
         return call
     trainer._step_fn = step_fn
@@ -132,11 +137,15 @@ def compositor_calls(trainer, calls: list, n: int):
     def wrap(name):
         def fwd(fields, gauss_id, tile_starts, n_tiles_x, n_tiles_y, *a):
             if trainer._profiler is not None and len(calls) < n:
+                view = picks[-1][1]
+                if isinstance(view, list):      # this rank's view of a batch
+                    view = view[trainer.mesh.d][0]
                 calls.append({"kind": "3d" if name == names[0] else "2d",
                               "args": (fields, gauss_id, tile_starts,
                                        n_tiles_x),
-                              "view": picks[-1][1],
-                              "iteration": picks[-1][0]})
+                              "view": view,
+                              "iteration": picks[-1][0],
+                              "sh_degree": trainer.active_sh_degree})
             return orig[name](fields, gauss_id, tile_starts, n_tiles_x,
                               n_tiles_y, *a)
         return fwd

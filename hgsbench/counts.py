@@ -106,24 +106,53 @@ def sfu_rate(n_sm: int, sm_clock_hz: float) -> float:
 
 def mlp_flops_per_anchor(model: dict) -> int:
     """Forward FLOPs of the three decoders for one anchor: two matmuls
-    each, (F + view) -> F -> out, two operations a multiply-add."""
+    each, d_in -> F -> out, two operations a multiply-add; opacity and cov
+    take F + view, colour F + view + appearance."""
     F, k, view = model["feat_dim"], model["n_offsets"], model["view_dim"]
-    d_in = F + view + model.get("appearance_dim", 0)
+    app = model.get("appearance_dim", 0)
     color = 3 * k if model.get("color_attr", "RGB") == "RGB" else None
     if color is None:
         deg = int("".join(c for c in model["color_attr"] if c.isdigit()))
         color = 3 * (deg + 1) ** 2 * k
-    outs = (k, 7 * k, color)
-    return sum(2 * (d_in * F + F * o) for o in outs)
+    heads = ((F + view, k), (F + view, 7 * k), (F + view + app, color))
+    return sum(2 * (d_in * F + F * o) for d_in, o in heads)
+
+
+# FP32 operations of `reference/sh.eval_sh`'s basis, by degree: degree 1
+# scales y, z, x by C1 (3); degree 2 adds xx, yy, zz, xy, yz, xz (6) and
+# its five values C2[0] xy (1), C2[1] yz (1), C2[2] (2 zz - xx - yy) (4),
+# C2[3] xz (1), C2[4] (xx - yy) (2); degree 3 adds C3[0] y (3 xx - yy)
+# (4), C3[1] xy z (2), C3[2] y (4 zz - xx - yy) (5), C3[3] z (2 zz - 3 xx
+# - 3 yy) (7), C3[4] x (4 zz - xx - yy) (5), C3[5] z (xx - yy) (3), C3[6]
+# x (xx - 3 yy) (4). Degree 0's basis is the constant C0.
+SH_BASIS_OPS = (0, 3, 18, 48)
+
+
+def sh_flops_per_row(model: dict, degree=None) -> int:
+    """FP32 operations of the SH evaluation of one decoded row at
+    `degree` (None: the configuration's maximum, what a render with no
+    active degree evaluates): the basis (`SH_BASIS_OPS`) plus one
+    multiply-add, two operations, per coefficient and channel, 3(d+1)^2.
+    0 for RGB colours."""
+    attr = model.get("color_attr", "RGB")
+    if attr == "RGB":
+        return 0
+    if degree is None:
+        degree = int("".join(c for c in attr if c.isdigit()))
+    return SH_BASIS_OPS[degree] + 2 * 3 * (degree + 1) ** 2
 
 
 def step_flops(model: dict, visible_anchors: int, kernels: dict,
-               train: bool) -> float:
-    """The FP32 operations a step needs: the decoders over the anchors the
-    view's LOD mask and prefilter select (forward, and twice that again
-    backward when training) plus the compositors' counted FP32 work
-    (`kernels`: kernel -> Pairs)."""
-    mlp = mlp_flops_per_anchor(model) * visible_anchors * (3 if train else 1)
+               train: bool, sh_degree=None) -> float:
+    """The FP32 operations a step needs: the decoders and the SH
+    evaluation of their rows (`n_offsets` a visible anchor, at
+    `sh_degree`, as `sh_flops_per_row`) over the anchors the view's LOD
+    mask and prefilter select (forward, and twice that again backward when
+    training) plus the compositors' counted FP32 work (`kernels`: kernel
+    -> Pairs)."""
+    per_anchor = (mlp_flops_per_anchor(model)
+                  + model["n_offsets"] * sh_flops_per_row(model, sh_degree))
+    mlp = per_anchor * visible_anchors * (3 if train else 1)
     return mlp + sum(call_ops(k, p)[0] for k, p in kernels.items())
 
 

@@ -1,7 +1,8 @@
-"""The kept training steps' needed FP32 operations (decoders forward and
-backward over the anchors the view selects, plus the compositors'
-counted work) over their count x the median step ms outside the
-profiler's stretch x 67 TFLOP/s, in %."""
+"""The kept training steps' needed FP32 operations (decoders and their
+SH colours at the step's degree, forward and backward, over the anchors
+the view selects, plus the compositors' counted work) over their count
+x the median step ms outside the profiler's stretch x 67 TFLOP/s, in
+%."""
 from hgsbench import counts
 from hgsbench.readers import CALL_KIND, median, untraced
 
@@ -16,5 +17,6 @@ def read(run):
     for c in calls:
         ks = [k for k, kind in CALL_KIND.items() if kind == c["kind"]]
         flops += counts.step_flops(run.model, c["visible"],
-                                   {k: c["pairs"] for k in ks}, train=True)
+                                   {k: c["pairs"] for k in ks}, train=True,
+                                   sh_degree=c.get("sh_degree"))
     return counts.percent(flops, len(calls) * step_s * counts.FP32_FLOPS)

@@ -1,7 +1,7 @@
-"""The kept frames' needed FP32 operations (decoders forward over the
-anchors the view selects, plus K1's counted work) over their count x the
-median render time (the span around render_request) x 67 TFLOP/s, in
-%."""
+"""The kept frames' needed FP32 operations (decoders and their SH
+colours forward over the anchors the view selects, plus K1's counted
+work) over their count x the median render time (the span around
+render_request) x 67 TFLOP/s, in %."""
 from hgsbench import counts
 from hgsbench.readers import median
 

@@ -40,9 +40,13 @@ def anchor_state(t: Tables) -> AnchorState:
 
 
 def decoders(t: Tables) -> MlpDecoders:
+    """The decoders, with the appearance table where the tables hold one
+    (its row is the camera's uid)."""
     def mlp(name, tanh=False):
         return TwoLayerMLP(*t.mlp[name], final_tanh=tanh)
-    return MlpDecoders(mlp("opacity", True), mlp("cov"), mlp("color"))
+    app = t.mlp.get("appearance")
+    return MlpDecoders(mlp("opacity", True), mlp("cov"), mlp("color"),
+                       None if app is None else app[0])
 
 
 def cameras(views: Views) -> list:
@@ -59,10 +63,11 @@ def cameras(views: Views) -> list:
 
 
 def trainer(cfg: dict, tables: Tables, views: Views, seed: int,
-            model_path: str, device) -> Trainer:
+            model_path: str, device, mesh=None) -> Trainer:
     """The program's `Trainer` over a coarse-stage scene that holds the
     benchmark's table (as a fresh training state: Adam moments and
-    statistics at zero) and views; logging goes nowhere."""
+    statistics at zero) and views, on `mesh` where given (this rank's
+    `parallel.mesh.Mesh`); logging goes nowhere."""
     _, op, pp = namespaces(cfg)
     cams = cameras(views)
     scene = SimpleNamespace(
@@ -79,4 +84,4 @@ def trainer(cfg: dict, tables: Tables, views: Views, seed: int,
     os.makedirs(model_path, exist_ok=True)
     logger = SimpleNamespace(info=lambda *a, **k: None)
     return Trainer(model_config(cfg), op, pp, scene, logger=logger,
-                   rasterizer="cuda", seed=seed)
+                   rasterizer="cuda", seed=seed, mesh=mesh)

@@ -31,6 +31,14 @@ def untraced(run) -> list:
     return [i for i in range(n) if not rows[0] <= i <= rows[1]]
 
 
+def traced_steps(run):
+    """Training steps in the profiler's stretch (None without a trace)."""
+    rows = run.out.get("traced_rows")
+    if run.kind != "train" or run.trace is None or rows is None:
+        return None
+    return rows[1] - rows[0]
+
+
 def epoch_rows(run) -> list:
     """Indices into the window's records of each densify epoch's
     iteration."""

@@ -43,12 +43,15 @@ def decoders_of(tables, device) -> MlpDecoders:
     def mlp(name, tanh=False):
         return TwoLayerMLP(*(t.to(device).clone() for t in tables.mlp[name]),
                            final_tanh=tanh)
-    return MlpDecoders(mlp("opacity", True), mlp("cov"), mlp("color"))
+    app = tables.mlp.get("appearance")
+    return MlpDecoders(mlp("opacity", True), mlp("cov"), mlp("color"),
+                       None if app is None else app[0].to(device).clone())
 
 
 def leaf_names(groups: dict) -> list:
     """Names of the optimised tensors in `groups()` order: the four tables,
-    then each MLP's w1, b1, w2, b2."""
+    then each MLP's w1, b1, w2, b2, then the appearance table where there
+    is one."""
     names = []
     for g, ts in groups.items():
         if len(ts) == 1:
@@ -60,6 +63,16 @@ def leaf_names(groups: dict) -> list:
 
 def leaves(groups: dict) -> list:
     return [t for ts in groups.values() for t in ts]
+
+
+def sh_degree_at(cfg: dict, it: int):
+    """The SH degree a coarse-stage run started at iteration 1 evaluates at
+    iteration `it` (the trainer's rule: degree 0 at the start, one more
+    before the step of every iteration divisible by 1000 up to the
+    maximum), min(max, it // 1000); None for RGB colours. (The fine stage
+    holds the maximum throughout; the cells train the coarse stage.)"""
+    top = model_config(cfg).max_sh_degree
+    return None if top is None else min(top, it // 1000)
 
 
 def stats_gate(cfg: dict, it: int, aerial: bool) -> bool:
@@ -75,34 +88,46 @@ def stats_gate(cfg: dict, it: int, aerial: bool) -> bool:
 def train_steps(cfg: dict, tables, views, picks, extent: float, device,
                 tf32: bool = False) -> dict:
     """Run the reference's training step over `picks` ((iteration, view
-    index) in order) from the benchmark's initial tables. Returns the loss
-    of each step, the norm of each leaf's gradient at the first step, the
-    norm of each leaf's change over all of them, the norm of each densify
-    statistic after them, and the leaf names.
+    index) in order, or (iteration, [(view index, loss weight), ...]) for
+    a data-parallel batch: its views' gradients and losses weighted by
+    weight / the batch's total, then one Adam step; a batch takes no
+    densify statistics) from the benchmark's initial tables, each step's SH
+    colours at the degree `sh_degree_at` gives for its iteration. Returns
+    the loss of each step, the norm of each leaf's gradient at the first
+    step, the norm of each leaf's change over all of them, the norm of each
+    densify statistic after them, the leaf names and each step's SH degree.
     `tf32` computes the matmuls and convolutions in TF32 (the control)."""
     mcfg, op = model_config(cfg), optim(cfg)
     ts = ref_step.init_train_state(state_of(tables, device),
                                    decoders_of(tables, device))
     start = [t.detach().clone() for t in leaves(ts.params.groups())]
-    step = ref_step.build_train_step(
-        mcfg, op, views.height, views.width, spatial_lr_scale=extent,
-        background=torch.zeros(3, device=device))
+    # one step per SH degree, built before TF32 is set (a build turns it
+    # off for the process)
+    steps = {}
+    for it, _ in picks:
+        deg = sh_degree_at(cfg, it)
+        if deg not in steps:
+            steps[deg] = ref_step.build_train_step(
+                mcfg, op, views.height, views.width, spatial_lr_scale=extent,
+                active_sh_degree=deg,
+                background=torch.zeros(3, device=device))
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.backends.cudnn.allow_tf32 = tf32
     losses, grad_norms = [], None
     try:
         for it, v in picks:
-            cam = Camera(viewmat=views.viewmat[v], K=views.K[v],
-                         width=views.width, height=views.height,
-                         cam_center=views.center[v], uid=v)
-            ct = ref_step.camera_tensors(
-                cam, image=views.image[v], alpha_mask=views.alpha_mask[v],
-                invdepth=views.invdepth[v], depth_mask=views.depth_mask[v],
-                do_stats=stats_gate(cfg, it, views.is_aerial[v]))
-            loss, aux, pkg, grads, probe_grad = step.value_and_grad(
-                ts, ct, float(it))
-            if int(pkg["n_dropped"]) != 0:
-                raise RuntimeError("the reference dropped tile instances")
+            step = steps[sh_degree_at(cfg, it)]
+            if isinstance(v, list):
+                loss, aux, pkg, grads, probe_grad, ct = _batch_grads(
+                    step, ts, views, v, it)
+            else:
+                ct = _camera(views, v,
+                             stats_gate(cfg, it, views.is_aerial[v]))
+                loss, aux, pkg, grads, probe_grad = step.value_and_grad(
+                    ts, ct, float(it))
+                if int(pkg["n_dropped"]) != 0:
+                    raise RuntimeError("the reference dropped tile "
+                                       "instances")
             if grad_norms is None:
                 grad_norms = [float(torch.linalg.norm(g.double()))
                               for gs in grads.values() for g in gs]
@@ -120,7 +145,42 @@ def train_steps(cfg: dict, tables, views, picks, extent: float, device,
                  for k, v in ts.stats._asdict().items()}
     return {"losses": losses, "grad_norms": grad_norms,
             "change_norms": change, "stat_norms": stats,
-            "names": leaf_names(ts.params.groups())}
+            "names": leaf_names(ts.params.groups()),
+            "sh_degrees": [sh_degree_at(cfg, it) for it, _ in picks]}
+
+
+def _camera(views, v: int, do_stats: bool):
+    """View `v` with its targets, as the step takes it."""
+    cam = Camera(viewmat=views.viewmat[v], K=views.K[v], width=views.width,
+                 height=views.height, cam_center=views.center[v], uid=v)
+    return ref_step.camera_tensors(
+        cam, image=views.image[v], alpha_mask=views.alpha_mask[v],
+        invdepth=views.invdepth[v], depth_mask=views.depth_mask[v],
+        do_stats=do_stats)
+
+
+def _batch_grads(step, ts, views, batch: list, it: int):
+    """A data-parallel batch's weighted loss and gradients, view by view:
+    (loss, aux, pkg, grads, probe gradient, camera) as `value_and_grad`
+    gives them for one view, the last view's aux, pkg and camera (with no
+    statistics)."""
+    total = sum(w for _, w in batch)
+    loss_sum, grads_sum = 0.0, None
+    for v, w in batch:
+        ct = _camera(views, v, False)
+        loss, aux, pkg, grads, probe_grad = step.value_and_grad(
+            ts, ct, float(it))
+        if int(pkg["n_dropped"]) != 0:
+            raise RuntimeError("the reference dropped tile instances")
+        s = w / total
+        loss_sum = loss_sum + s * loss
+        if grads_sum is None:
+            grads_sum = {k: [s * g for g in gs] for k, gs in grads.items()}
+        else:
+            for k, gs in grads.items():
+                grads_sum[k] = [a + s * g for a, g in zip(grads_sum[k], gs)]
+        del grads
+    return loss_sum, aux, pkg, grads_sum, probe_grad, ct
 
 
 @torch.no_grad()

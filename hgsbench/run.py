@@ -20,7 +20,9 @@ The last line of standard output is one JSON object: `correct`,
 `breakdown`, and last `checks`, each compared number with its limit; the
 same numbers are the last lines of standard error. Without a card, with
 fewer cards than the cell asks for, or with JAX or the JAX package loaded
-once the window has closed, it prints no result and exits non-zero.
+once the window has closed (in this process, or in a rank a driver
+started: the driver reports what each had loaded as `forbidden`), it
+prints no result and exits non-zero.
 Standard error also carries the readings that are not compared (the
 program's and the reference's, each leaf's), as one `detail` line.
 """
@@ -150,6 +152,7 @@ def measure(spec: SimpleNamespace, seed: int, seconds: float, trace: bool,
         run = SimpleNamespace(
             cell=spec.cell["name"], kind=spec.traffic["kind"],
             model=spec.cfg["model"], out=out, trace=tr,
+            program_spans=out.get("program_spans"),
             sfu_rate=(None if device.type != "cuda" else
                       16 * torch.cuda.get_device_properties(device)
                       .multi_processor_count * sm_clock_hz()))
@@ -165,6 +168,8 @@ def measure(spec: SimpleNamespace, seed: int, seconds: float, trace: bool,
         if tr is not None:
             result["breakdown"] = {"device_ops": tr.device_ops,
                                    "idle_gaps": tr.idle_gaps}
+    # what a driver's own processes (a mesh's ranks) had loaded
+    result["_forbidden"] = out.get("forbidden", [])
     result["stages"] = out.get("stages", {})
     result["checks"] = checks
     result["_detail"] = {k: v for k, v in out["numbers"].items()
@@ -190,10 +195,10 @@ def main(argv=None) -> int:
         return 2
     result = measure(spec, args.seed, args.seconds, bool(args.trace),
                      torch.device("cuda", 0))
-    bad = forbidden_modules()
+    bad = sorted(set(forbidden_modules()).union(result.pop("_forbidden")))
     if bad:
-        print(f"hgsbench: loaded in this process: {', '.join(bad)}",
-              file=sys.stderr)
+        print(f"hgsbench: loaded in this process or a rank's: "
+              f"{', '.join(bad)}", file=sys.stderr)
         return 3
     detail = result.pop("_detail")
     print(f"detail {json.dumps(detail, default=str)}", file=sys.stderr)

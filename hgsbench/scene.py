@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from hgsbench.reference.config import ModelConfig
+
 
 class Views(NamedTuple):
     """Cameras and targets, each stacked over the views."""
@@ -49,7 +51,8 @@ class Tables(NamedTuple):
     level: torch.Tensor        # (C,) int32
     extra_level: torch.Tensor  # (C,)
     n: int
-    mlp: dict                  # name -> (w1, b1, w2, b2)
+    mlp: dict                  # name -> (w1, b1, w2, b2); "appearance" ->
+                               # (table,) where appearance_dim > 0
 
 
 
@@ -189,7 +192,12 @@ def make_tables(cfg: dict, table: dict, gen: torch.Generator,
     each of those levels, on the streets' ground and the walls below
     `table["street_height"]` (x the block's scale). Features N(0, 1),
     offsets N(0, 0.5), log scalings log(level size) + N(0, 0.1), from
-    `gen`; the decoders from `DECODER_SEED`."""
+    `gen`; the decoders from `DECODER_SEED`: opacity and cov take
+    F + view_dim, color F + view_dim + appearance_dim and gives
+    color_dim x k (3 for RGB, 3(d+1)^2 for SH{d}); where appearance_dim >
+    0, an appearance table of one N(0, 1) row per training view is drawn
+    after them, so that the RGB, appearance-free configurations draw what
+    they always drew."""
     model, sc = cfg["model"], cfg["scene"]
     rects, _, scale = block_geometry(cfg)
     area = sum(_area(r) for r in rects)
@@ -229,10 +237,17 @@ def make_tables(cfg: dict, table: dict, gen: torch.Generator,
 
     rotation = torch.zeros((C, 4), device=device)
     rotation[:, 0] = 1.0
-    view = model["view_dim"]
-    color_dim = 3 * k
+    mcfg = ModelConfig.from_dict(cfg["yaml"]["model_params"]["model_config"])
+    view, app = mcfg.view_dim, mcfg.appearance_dim
     dec = torch.Generator(device=device)
     dec.manual_seed(DECODER_SEED)
+    mlp = {"opacity": _mlp(dec, F + view, F, k, device),
+           "cov": _mlp(dec, F + view, F, 7 * k, device),
+           "color": _mlp(dec, F + view + app, F, mcfg.color_dim * k, device)}
+    if app > 0:
+        rows = sc["aerial_views"] + sc["street_views"]
+        mlp["appearance"] = (torch.randn((rows, app), generator=dec,
+                                         device=device),)
     return Tables(
         anchor=pad(pts),
         offset=pad(0.5 * torch.randn((n, k, 3), generator=gen,
@@ -242,10 +257,7 @@ def make_tables(cfg: dict, table: dict, gen: torch.Generator,
         rotation=rotation,
         level=pad(lvs),
         extra_level=torch.zeros((C,), device=device),
-        n=n,
-        mlp={"opacity": _mlp(dec, F + view, F, k, device),
-             "cov": _mlp(dec, F + view, F, 7 * k, device),
-             "color": _mlp(dec, F + view, F, color_dim, device)})
+        n=n, mlp=mlp)
 
 
 # ---------------------------------------------------------------------------

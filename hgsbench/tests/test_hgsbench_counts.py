@@ -74,6 +74,33 @@ def test_decoder_flops_per_anchor():
     assert counts.step_flops(model, 7, {}, train=True) == 3 * 7 * 13760
 
 
+@pytest.mark.parametrize("attr,per_row", [
+    ("RGB", 0),
+    ("SH0", 0 + 2 * 3 * 1),       # the constant basis, 3 multiply-adds
+    ("SH1", 3 + 2 * 3 * 4),       # C1 x, y, z
+    ("SH2", 18 + 2 * 3 * 9),      # and 6 products, 5 values (9 operations)
+    ("SH3", 48 + 2 * 3 * 16),     # and 7 values (30 operations)
+])
+def test_sh_evaluation_flops(attr, per_row):
+    model = {"feat_dim": 32, "n_offsets": 10, "view_dim": 0,
+             "appearance_dim": 4, "color_attr": attr}
+    assert counts.sh_flops_per_row(model) == per_row
+    mlp = counts.mlp_flops_per_anchor(model)
+    assert counts.step_flops(model, 7, {}, train=False) == 7 * (
+        mlp + 10 * per_row)
+    assert counts.step_flops(model, 7, {}, train=True) == 3 * 7 * (
+        mlp + 10 * per_row)
+    if attr != "RGB":
+        # the colour decoder: 36 -> 32 -> 3(d+1)^2 x 10; the others 32 in
+        color = 10 * 3 * (int(attr[2]) + 1) ** 2
+        assert mlp == (2 * (32 * 32 + 32 * 10) + 2 * (32 * 32 + 32 * 70)
+                       + 2 * (36 * 32 + 32 * color))
+        # at a lower active degree, that degree's count
+        assert counts.sh_flops_per_row(model, degree=0) == 6
+    else:
+        assert counts.sh_flops_per_row(model, degree=None) == 0
+
+
 def test_percent_has_nothing_to_divide_by():
     assert counts.percent(1.0, 0.0) is None
     assert counts.percent(1.0, 4.0) == 25.0

@@ -20,7 +20,7 @@ TRAIN = ("step.forward_ms", "step.backward_ms", "step.update_ms",
          "render.decode_ms.train", "render.bin_ms.train",
          "render.visible_pct.train", "trainer.calibrate_ms",
          "densify.grow_ms", "render.composite_ms.train",
-         "render.instance_fill_pct.train")
+         "render.instance_fill_pct.train", "render.decode_ms.mesh")
 VIEW = ("viewer.render_ms_p50", "viewer.quantize_ms_p50",
         "viewer.send_ms_p50", "render.decode_ms.view", "render.bin_ms.view",
         "render.visible_pct.view", "render.composite_ms.view",
@@ -108,6 +108,21 @@ def test_training_readers():
     assert read("render.composite_ms.train", run) == pytest.approx(6.0)
     assert read("render.instance_fill_pct.train", run) == pytest.approx(
         50.0)
+
+
+def test_mesh_decode_reader():
+    """A sharded step opens no `step.forward`: its decodes are at the top
+    of the record, which only `render.decode_ms.mesh` reads; a one-card
+    step's decodes (and a calibration's) are not its."""
+    spans = [sp("render.decode", 50.0, ms, None, it)
+             for it, ms in ((1, 11.0), (2, 9.0), (3, 30.0))]
+    spans += [sp("render.bin", 9.0, 25.0, None, 1),
+              sp("trainer.pick", 0.1, 0.2, request=1)]
+    run = fake("train", {"spans": spans, "counters": {}}, train_out())
+    assert read("render.decode_ms.mesh", run) == pytest.approx(11.0)
+    assert read("render.decode_ms.train", run) is None
+    assert read("render.decode_ms.mesh",
+                fake("train", train_record(), train_out())) is None
 
 
 def test_densify_readers_are_none_without_an_epoch():

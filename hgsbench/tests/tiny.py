@@ -45,3 +45,23 @@ def shrink(s):
             op.update(EPOCHS)
             s.traffic["min_quanta"] = 16
     return s
+
+
+# colour heads a configuration may name besides the cells' RGB with a view
+# direction: SH2 colours with view_dim 0 (Horizon-GS's large-scene chunks),
+# without and with a per-view appearance table (which then learns)
+COLOUR_HEADS = {
+    "sh2": {"color_attr": "SH2", "view_dim": 0, "appearance_dim": 0},
+    "sh2-app4": {"color_attr": "SH2", "view_dim": 0, "appearance_dim": 4},
+}
+APPEARANCE_LR = {"appearance_lr_init": 0.05, "appearance_lr_final": 0.005}
+
+
+def colour_spec(cell: str, head: str):
+    """`spec(cell)` with the colour head `head`; the cell's limits stay."""
+    s = spec(cell)
+    kwargs = COLOUR_HEADS[head]
+    s.cfg["model"].update(kwargs)
+    if kwargs["appearance_dim"]:
+        s.cfg["yaml"]["optim_params"].update(APPEARANCE_LR)
+    return s

@@ -2,7 +2,9 @@
 union of its operations' intervals over every stream (so a kernel beside
 another on a second stream counts once), the traced window, each
 compositor kernel's calls in order, the device operations that took most
-time, and the longest idle gaps by what the host was doing.
+time, the longest idle gaps by what the host was doing, and the
+collectives' kernels (NCCL's): the union of their intervals, and the part
+of it that no other device operation overlaps.
 
 The busy union replaces the sum of kernel durations that
 horizongs_tpu_torch/tools/timing.py::device_profile (commit 9bef012)
@@ -26,6 +28,8 @@ class Trace(NamedTuple):
     kernels: dict          # name -> [duration_s, ...] in launch order
     device_ops: list       # [[name, seconds], ...] most time first
     idle_gaps: list        # [[host activity, seconds], ...] longest first
+    collective_s: float = 0.0          # union of the NCCL kernels
+    collective_exposed_s: float = 0.0  # of it, what nothing else overlaps
 
 
 def _merge(intervals):
@@ -35,6 +39,20 @@ def _merge(intervals):
             out[-1][1] = max(out[-1][1], e)
         else:
             out.append([s, e])
+    return out
+
+
+def _overlap(a, b) -> float:
+    """The length two merged interval lists share."""
+    i = j = 0
+    out = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        out += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
     return out
 
 
@@ -99,9 +117,15 @@ def read(path: str, top: int = 10) -> Trace:
         return [[k[:NAME_CHARS], v / 1e6] for k, v in
                 sorted(d.items(), key=lambda kv: -kv[1])[:top]]
 
+    comm = _merge([(ts, ts + d) for ts, d, name, cat in dev
+                   if cat == "kernel" and "nccl" in name.lower()])
+    rest = _merge([(ts, ts + d) for ts, d, name, cat in dev
+                   if not (cat == "kernel" and "nccl" in name.lower())])
+    comm_us = sum(e - s for s, e in comm)
     return Trace(busy_s=busy_us / 1e6, window_s=window_us / 1e6,
                  kernels=dict(kernels), device_ops=ranked(by_name),
-                 idle_gaps=ranked(gaps))
+                 idle_gaps=ranked(gaps), collective_s=comm_us / 1e6,
+                 collective_exposed_s=(comm_us - _overlap(comm, rest)) / 1e6)
 
 
 def kernel_calls(trace: Trace, fragment: str) -> list:

@@ -19,6 +19,9 @@ come from the program's own steps (about 150 of them), which the
 reference does not follow; the reference runs the epoch's decision,
 growth, pruning and repack on a host copy of that state and compares the
 tables the program's epoch left, row by row.
+
+`set_up`, `drive` and `judge_steps` are shared with the mesh driver
+(`hgsbench.train_mesh`), which runs them in each rank.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import contextlib
 import gc
 import os
 import time
+from types import SimpleNamespace
 
 import torch
 
@@ -41,8 +45,43 @@ def _norms(tensors) -> list:
 
 
 def _initial_leaves(t: scene.Tables) -> list:
+    """The initial tensors in the order of the trainer's `groups()`."""
     return ([t.anchor, t.offset, t.feat, t.scaling_log]
-            + [x for name in ("opacity", "cov", "color") for x in t.mlp[name]])
+            + [x for name in ("opacity", "cov", "color") for x in t.mlp[name]]
+            + list(t.mlp.get("appearance", ())))
+
+
+def first_steps(tr, cfg: dict, first: int, initial):
+    """Set the trainer's SH degree to what a run started at iteration 1
+    holds on entering `first` (whose own step may raise it), and drive it
+    through iterations first..first+2, one `train()` call each (the
+    window's own call and feed). Returns (the program's readings for
+    `compare`: each step's loss and SH degree, the first gradient as Adam
+    holds it, each leaf's change from `initial` (the tables as the
+    benchmark made them; None leaves it out) and the densify statistics
+    after the three; the picks the reference repeats)."""
+    tr.active_sh_degree = check.sh_degree_at(cfg, first - 1)
+    picks, losses, degrees = [], [], []
+    with capture.step_picks(tr, picks):
+        for i in range(3):
+            it = first + i
+            losses += tr.train(iterations=it, first_iter=it)
+            degrees.append(tr.active_sh_degree)
+            if i == 0:
+                mu = [m for ms in tr.state.opt.mu.values() for m in ms]
+                grad_norms = [n / (1.0 - ADAM_B1) for n in _norms(mu)]
+                names = check.leaf_names(tr.state.params.groups())
+    stat_norms = {k: float(torch.linalg.norm(v.detach().double()))
+                  for k, v in tr.state.stats._asdict().items()}
+    change_norms = None
+    if initial is not None:
+        now = check.leaves(tr.state.params.groups())
+        change_norms = [float(torch.linalg.norm(
+            (a.detach() - b.to(a.device)).double()))
+            for a, b in zip(now, _initial_leaves(initial))]
+    return ({"losses": losses, "grad_norms": grad_norms,
+             "change_norms": change_norms, "stat_norms": stat_norms,
+             "names": names, "sh_degrees": degrees}, picks)
 
 
 def window_iterations(traffic: dict, seconds: float, rate: float) -> int:
@@ -56,62 +95,65 @@ def window_iterations(traffic: dict, seconds: float, rate: float) -> int:
     return q * k + off
 
 
-def run(ctx) -> dict:
+def set_up(cfg: dict, traffic: dict, seed: int, dev, model_path: str,
+           stages, mesh=None, keep_reference: bool = True):
+    """Make the table and the views from `seed`, build the program's
+    trainer on them (on `mesh` where given) and drive its first three
+    iterations (`first_steps`). Returns (the trainer, what the reference
+    needs: the program's readings `prog`, the `picks`, the benchmark's
+    host copy of the initial `tables` (None without `keep_reference`),
+    the `views` and their `extent`)."""
     from hgsbench import program
-    cfg, traffic, dev = ctx.cfg, ctx.traffic, ctx.device
-    stages = Stages(dev)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(ctx.seed)
+    gen.manual_seed(seed)
     tables = scene.make_tables(cfg, traffic["table"], gen, dev)
     views = scene.make_views(cfg, gen, dev)
-    ref_tables = scene.host_copy(tables)
+    ref_tables = scene.host_copy(tables) if keep_reference else None
     extent = scene.cameras_extent(views)
     stages.mark("scene_s")
-    tr = program.trainer(cfg, tables, views, ctx.seed,
-                         os.path.join(ctx.tmpdir, "model"), dev)
+    tr = program.trainer(cfg, tables, views, seed, model_path, dev,
+                         mesh=mesh)
     del tables
     stages.mark("program_s")
-
-    # the three steps the reference follows, one train() call each
-    first = traffic["first_iter"]
-    picks, losses = [], []
-    with capture.step_picks(tr, picks):
-        for i in range(3):
-            it = first + i
-            losses += tr.train(iterations=it, first_iter=it)
-            if i == 0:
-                mu = [m for ms in tr.state.opt.mu.values() for m in ms]
-                grad_norms = [n / (1.0 - ADAM_B1) for n in _norms(mu)]
-                names = check.leaf_names(tr.state.params.groups())
-    stat_norms = {k: float(torch.linalg.norm(v.detach().double()))
-                  for k, v in tr.state.stats._asdict().items()}
-    now = check.leaves(tr.state.params.groups())
-    change_norms = [float(torch.linalg.norm(
-        (a.detach() - b.to(dev)).double()))
-        for a, b in zip(now, _initial_leaves(ref_tables))]
-    del now
+    prog, picks = first_steps(tr, cfg, traffic["first_iter"], ref_tables)
     stages.mark("first_steps_s")
+    return tr, SimpleNamespace(prog=prog, picks=picks, tables=ref_tables,
+                               views=views, extent=extent)
 
-    # warm-up: the rate that sizes the window
+
+def drive(tr, cfg: dict, traffic: dict, seconds: float, trace: bool, dev,
+          stages, t0: float, model_path: str, agree=None,
+          views_per_step: int = 1):
+    """Warm the trainer up from the fourth iteration on, size the window
+    from the warm-up's rate (`agree(rate)` gives the rate every rank
+    sizes it from) and run it, one `train()` call. A traced run has the
+    trainer's profiler trace a stretch of the window and keeps the
+    compositors' arguments of its first steps; a window inside the
+    densify window keeps pinned host copies of its first epoch. `t0` is
+    the run's start on the `perf_counter` clock. Returns (the run's
+    output without its numbers, the first epoch's copy or {})."""
+    first = traffic["first_iter"] + 3
     warm = traffic["warmup_iterations"]
     tr.records = {k: [] for k in tr.records}
-    tr.train(iterations=first + 3 + warm - 1, first_iter=first + 3)
+    tr.train(iterations=first + warm - 1, first_iter=first)
     tail = tr.records["iteration_ms"][2:]
     rate = 1e3 / (sum(tail) / len(tail))
+    if agree is not None:
+        rate = agree(rate)
     # host buffers for the copy of the window's first densify epoch
-    start = first + 3 + warm
+    start = first + warm
     op = cfg["yaml"]["optim_params"]
     epochs = (op["densification"]
               and op["update_from"] < start < op["update_until"])
     bufs = capture.epoch_buffers(tr.state) if epochs else None
     stages.mark("warmup_s")
-    setup_s = time.perf_counter() - ctx.t0
+    setup_s = time.perf_counter() - t0
 
     # the window
-    n_it = window_iterations(traffic, ctx.seconds, rate)
+    n_it = window_iterations(traffic, seconds, rate)
     tr.records = {k: [] for k in tr.records}
     calls, epoch = [], {}
-    if ctx.trace:
+    if trace:
         tr.profile_steps = (start + traffic["trace_from"],
                             traffic["trace_steps"])
         hook = capture.compositor_calls(tr, calls, traffic["trace_calls"])
@@ -119,16 +161,17 @@ def run(ctx) -> dict:
         hook = contextlib.nullcontext()
     with hook, (capture.first_epoch(epoch, bufs) if epochs
                 else contextlib.nullcontext()):
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         tr.train(iterations=start + n_it - 1, first_iter=start)
         _sync(dev)
-        window_s = time.perf_counter() - t0
+        window_s = time.perf_counter() - t1
     stages.mark("window_s")
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else 0)
-    out = {
-        "attempted": n_it, "failed": 0,
-        "e2e": {"train_views_per_s": n_it / window_s,
+    n_views = n_it * views_per_step
+    return {
+        "attempted": n_views, "failed": 0,
+        "e2e": {"train_views_per_s": n_views / window_s,
                 "peak_mem_gib": peak / 2 ** 30, "setup_s": setup_s},
         "memory_peak_bytes": peak, "window_s": window_s,
         "records": tr.records, "window_first": start, "calls": calls,
@@ -136,27 +179,48 @@ def run(ctx) -> dict:
         # iteration whose start stops it and writes the trace
         "traced_rows": ((traffic["trace_from"],
                          traffic["trace_from"] + traffic["trace_steps"])
-                        if ctx.trace else None),
-        "trace_path": (os.path.join(ctx.tmpdir, "model", "profile",
-                                    "trace.json") if ctx.trace else None),
+                        if trace else None),
+        "trace_path": (os.path.join(model_path, "profile", "trace.json")
+                       if trace else None),
         "epochs": len(tr.records["densify"]),
-    }
-    if ctx.trace:
-        out["calls"] = capture.count_calls(calls, cfg, ref_tables, views,
-                                           dev)
-        stages.mark("counts_s")
-    del tr
+    }, epoch
+
+
+def release(dev) -> None:
+    """Give the memory of what the caller dropped back to the card."""
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    # the reference over the same three steps, and over the first epoch
-    ref = check.train_steps(cfg, ref_tables, views, picks, extent, dev)
+
+def judge_steps(out: dict, s, cfg: dict, dev, stages, trace: bool) -> None:
+    """Once the program's state is freed: count the traced compositor
+    calls' work, repeat the three set-up steps with the reference and put
+    the readings `correct` may compare in `out["numbers"]`."""
+    if trace:
+        out["calls"] = capture.count_calls(out["calls"], cfg, s.tables,
+                                           s.views, dev)
+        stages.mark("counts_s")
+    ref = check.train_steps(cfg, s.tables, s.views, s.picks, s.extent, dev)
     stages.mark("reference_s")
-    out["numbers"] = compare(
-        {"losses": losses, "grad_norms": grad_norms,
-         "change_norms": change_norms, "stat_norms": stat_norms,
-         "names": names}, ref)
+    out["numbers"] = compare(s.prog, ref)
+
+
+def run(ctx) -> dict:
+    if "mesh" in ctx.traffic:
+        from hgsbench import train_mesh
+        return train_mesh.run(ctx)
+    cfg, dev = ctx.cfg, ctx.device
+    stages = Stages(dev)
+    model_path = os.path.join(ctx.tmpdir, "model")
+    tr, s = set_up(cfg, ctx.traffic, ctx.seed, dev, model_path, stages)
+    out, epoch = drive(tr, cfg, ctx.traffic, ctx.seconds, ctx.trace, dev,
+                       stages, ctx.t0, model_path)
+    del tr
+    release(dev)
+
+    # the reference over the same three steps, and over the first epoch
+    judge_steps(out, s, cfg, dev, stages, ctx.trace)
     if epoch:
         ref_ep = ref_densify.epoch(
             check.model_config(cfg), check.optim(cfg), epoch["before"], dev,
