@@ -23,9 +23,11 @@ requiring one) autograd records no node, so nothing is kept for backward.
 
 Spans (`horizongs_tpu_torch.tracing`, while its recorder is on):
 `render.bin` around the projection, cull, tile spans, instance build and
-sort (`build_raster_inputs*`), `render.composite` around the compositor
-and the assembly of the image; counters `render.instances` and
-`render.instance_cap`.
+sort (`build_raster_inputs*`), and inside it, for SH colours, `render.sh`
+around their evaluation; `render.composite` around the compositor and the
+assembly of the image; counters `render.instances`,
+`render.instance_cap`, and for SH colours `render.sh_rows` and
+`render.sh_coeffs`.
 """
 from __future__ import annotations
 
@@ -104,6 +106,21 @@ def count_instances_3dgs(means, quats, scales, opacities, viewmat, K,
                                 opacities=opacities)
 
 
+def _sh_rgb(colors, sh_degree: Optional[int], means, cam_pos):
+    """The fields' RGB: SH colours evaluated at `sh_degree` toward the
+    camera (`_sh_colors`) inside the span `render.sh`, counting the rows
+    evaluated (`render.sh_rows`) and the coefficients a row at that degree,
+    (d+1)^2 (`render.sh_coeffs`); RGB colours pass through and record
+    nothing."""
+    if sh_degree is None:
+        return colors
+    with tracing.span("render.sh"):
+        rgb = _sh_colors(colors, sh_degree, means, cam_pos)
+    tracing.count("render.sh_rows", colors.shape[0])
+    tracing.count("render.sh_coeffs", (sh_degree + 1) ** 2)
+    return rgb
+
+
 class RasterInputs(NamedTuple):
     """What K1 is launched on for one view, and what the wrapper needs
     around it."""
@@ -130,7 +147,7 @@ def build_raster_inputs(means, quats, scales, opacities, colors, viewmat, K,
     cap = _cap(cap, means.shape[0])
     proj = project_3dgs(means, quats, scales, viewmat, K, width, height)
     cam_pos = torch.linalg.inv(viewmat)[:3, 3]
-    rgb = _sh_colors(colors, sh_degree, means, cam_pos)
+    rgb = _sh_rgb(colors, sh_degree, means, cam_pos)
     inst = build_tile_instances(
         proj.means2d.detach(), _cull_radii(proj, opacities).detach(),
         proj.depths.detach(), grid.n_tiles_x, grid.n_tiles_y, TILE_W,
@@ -273,7 +290,7 @@ def build_raster_inputs_2dgs(means, quats, scales, opacities, colors,
     cap = _cap(cap, means.shape[0])
     proj = project_2dgs(means, quats, scales, viewmat, K, width, height)
     cam_pos = torch.linalg.inv(viewmat)[:3, 3]
-    rgb = _sh_colors(colors, sh_degree, means, cam_pos)
+    rgb = _sh_rgb(colors, sh_degree, means, cam_pos)
     inst = build_tile_instances(
         proj.means2d.detach(),
         _cull_radii(proj, opacities, GUARD_PX_2DGS).detach(),

@@ -43,10 +43,13 @@ into `<model_path>/profile/spans.json`.
   * `train/trainer.py`: `trainer.pick`, `trainer.build_step` (child
     `trainer.calibrate`), `trainer.sync`, `trainer.densify`
   * `train/step.py`: `step.forward`, `step.backward`, `step.update`
-  * `render.py` and `ops/raster_cuda.py`: `render.decode`, `render.bin`,
+  * `render.py` and `ops/raster_cuda.py`: `render.decode`, `render.bin`
+    (child `render.sh`, the SH colours' evaluation, only for SH colours),
     `render.composite`; counters `render.anchor_rows`,
     `render.anchors_visible` (`models/anchors.decode_neural_gaussians`),
-    `render.instances`, `render.instance_cap`
+    `render.instances`, `render.instance_cap`, and for SH colours
+    `render.sh_rows` (the rows evaluated) and `render.sh_coeffs` ((d+1)^2
+    at the evaluated degree)
   * `viewer/server.py`: `viewer.receive`, `viewer.render`,
     `viewer.quantize`, `viewer.send`
 """

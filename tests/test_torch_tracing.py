@@ -1,9 +1,9 @@
 """The port's spans and counters (`horizongs_tpu_torch.tracing`) on the
 CPU: off, the trainer and the renderer record nothing and issue the very
 ATen ops they issue with the span sites patched out; on (a profiler
-recording), the trainer's, the step's, the render's, the densify
-epoch's and the viewer's spans come with their
-parents and requests, and land in the profiler's chrome trace; the edge
+recording), the trainer's, the step's, the render's (with SH colours,
+`render.sh` and its counters; with RGB, neither), the densify epoch's and
+the viewer's spans come with their parents and requests, and land in the profiler's chrome trace; the edge
 cases of a profiler started or stopped inside an open span, and the cap.
 Also `tools.timing.busy_union`, the busy time `device_profile` reports.
 """
@@ -58,8 +58,8 @@ def clean_record():
     tracing.reset()
 
 
-def _model():
-    cfg = ModelConfig(**CFG)
+def _model(**kwargs):
+    cfg = ModelConfig(**{**CFG, **kwargs})
     pts = random_gaussians(300, seed=1, extent=1.0)["means"]
     state = init_anchor_state_from_points(cfg, pts, device="cpu")
     mlps = init_mlps(cfg.feat_dim, cfg.view_dim, cfg.appearance_dim,
@@ -226,6 +226,36 @@ def test_anchors_visible_is_the_lod_mask_and_prefilter_count():
         assert counters["render.anchors_visible"] == [int(mask.sum())]
         assert counters["render.anchor_rows"] == [state.capacity]
         assert counters["render.instance_cap"][0] >= 1
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, None])
+def test_sh_colours_span_and_counters(degree):
+    """SH colours: `render.sh` inside `render.bin`, the rows evaluated and
+    the coefficients a row at the evaluated degree (None: the
+    configuration's maximum, 2)."""
+    cfg, state, mlps = _model(color_attr="SH2", view_dim=0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with torch.no_grad():
+            render(_cameras()[1], cfg, mlps, state, torch.zeros(3),
+                   active_sh_degree=degree)
+    snap = tracing.snapshot()
+    sh = _by_name(snap)["render.sh"]
+    assert [sp["parent"] for sp in sh] == ["render.bin"]
+    assert sh[0]["host_ms"] > 0
+    d = 2 if degree is None else degree
+    assert snap["counters"]["render.sh_rows"] == [
+        state.capacity * cfg.n_offsets]
+    assert snap["counters"]["render.sh_coeffs"] == [(d + 1) ** 2]
+
+
+def test_rgb_colours_record_no_sh():
+    cfg, state, mlps = _model()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _render_once(cfg, state, mlps, _cameras()[1])
+    snap = tracing.snapshot()
+    by = _by_name(snap)
+    assert set(by) >= set(RENDER_SPANS) and "render.sh" not in by
+    assert not {"render.sh_rows", "render.sh_coeffs"} & set(snap["counters"])
 
 
 def test_viewer_poll_spans_share_the_frame(tmp_path):

@@ -209,13 +209,22 @@ SURFEL_LOSSES = dict(lambda_normal=0.05, normal_start_iter=0,
                      lambda_dist=0.01, dist_start_iter=0)
 
 
-@pytest.mark.parametrize("cfg_kw, prefilter, loss_kw",
-                         [(FLAT, False, {}), (LOD, True, {}),
-                          (dict(LOD, gs_attr="2D"), True, SURFEL_LOSSES)],
+# SH colours with no view direction (MatrixCity Block_A's chunks): the
+# 32->(k x 27) colour layer, the SH evaluation and their backward, at each
+# degree the trainer's schedule holds
+SH2_VIEW0 = dict(LOD, color_attr="SH2", view_dim=0)
+
+
+@pytest.mark.parametrize("cfg_kw, prefilter, loss_kw, sh_degree",
+                         [(FLAT, False, {}, None), (LOD, True, {}, None),
+                          (dict(LOD, gs_attr="2D"), True, SURFEL_LOSSES,
+                           None)]
+                         + [(SH2_VIEW0, True, {}, d) for d in (0, 1, 2)],
                          ids=["flat_48x48", "lod_48x48_prefilter",
-                              "lod_2dgs_48x48_normal_dist"])
-def test_train_step_matches_jax(cfg_kw, prefilter, loss_kw, f32_blur,
-                                safe_depth_normals):
+                              "lod_2dgs_48x48_normal_dist"]
+                         + [f"lod_sh2_view0_48x48_deg{d}" for d in (0, 1, 2)])
+def test_train_step_matches_jax(cfg_kw, prefilter, loss_kw, sh_degree,
+                                f32_blur, safe_depth_normals):
     okw = dict(iterations=2000, start_stat=0, feature_lr=0.03,
                mlp_color_lr_init=0.02, mlp_opacity_lr_init=0.01, **loss_kw)
     cams, images, pts = _targets()
@@ -233,10 +242,12 @@ def test_train_step_matches_jax(cfg_kw, prefilter, loss_kw, f32_blur,
                                  do_stats=True)
     step_j = jstep.build_train_step(JConfig(**cfg_kw), j_make_optim(**okw),
                                     H, W, add_prefilter=prefilter,
-                                    rasterizer="pallas_interpret")
+                                    rasterizer="pallas_interpret",
+                                    active_sh_degree=sh_degree)
     step_t = tstep.build_train_step(ModelConfig(**cfg_kw), make_optim(**okw),
                                     H, W, add_prefilter=prefilter,
-                                    rasterizer="cuda")
+                                    rasterizer="cuda",
+                                    active_sh_degree=sh_degree)
     ts_j2, m_j = step_j(ts_j, j_cam, it)
     ts_t2, m_t = step_t(ts_t, t_cam, it)
 
