@@ -73,6 +73,17 @@ and `nvcc`. Phases, each of which fails the run (non-zero exit) on error:
                graph
                (`tools/profile_grid_overhead.py`). Serving and training
                (phases 4-7) must have launched none of them
+ 8b. P1        the 3DGS projection (`csrc/project3d.cu`): counted with
+               K1-K4 in phases 4-7 (the forward once a 3DGS request, the
+               forward and backward once a 3DGS step, neither on the 2DGS
+               paths); then over 10,035,200 random rows the forward bit
+               for bit the plain path's fields, radii and cull radii, and
+               the backward's error against the plain path in float64 at
+               most twice the plain float32 path's, leaf by leaf; then
+               both timed beside their bytes bound and the plain path
+               (`tools/profile_project.py`), with ptxas's registers and
+               spills from the build phase; its line is `P1 10035200 rows`
+               and its two entries are in the kernels line
   9. densify   one coarse `run_densify` epoch of the trained 3DGS state on
                the card (the statistics gates opened for 22 steps): at
                least one anchor grown and one pruned, equal to the same
@@ -736,7 +747,7 @@ def _serve(cams, cfg, mlps, state, bg, cap, build, fwd, kernels, expect):
         pkgs.append(pkg)
     launches = _counts(kernels)
     _require(launches == expect,
-             f"K1-K4 launched {launches} times for {len(cams)} requests "
+             f"kernels launched {launches} times for {len(cams)} requests "
              f"of gs_attr {cfg.gs_attr}, expected {expect}")
     for pkg in pkgs:
         _require(pkg["render"].shape == (H, W, 3), "render shape")
@@ -836,7 +847,7 @@ def _train(cfg, opt, state, mlps, cam, bg, cap, live, bwd_name, kernels,
         dropped.append(int(m["n_dropped"]))
     launches = _counts(kernels)
     _require(launches == tuple(n_steps * e for e in expect),
-             f"K1-K4 launched {launches} times in {n_steps} steps of "
+             f"kernels launched {launches} times in {n_steps} steps of "
              f"gs_attr {cfg.gs_attr}")
     _require(all(math.isfinite(x) for x in losses), f"loss {losses}")
     _require(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -2791,7 +2802,7 @@ def main() -> int:
     from horizongs_tpu_torch.models.config import ModelConfig
     from horizongs_tpu_torch.models.mlp import init_mlps
     from horizongs_tpu_torch.ops import (
-        grid_overhead, raster2d, raster3d, raster_cuda)
+        grid_overhead, project3d, raster2d, raster3d, raster_cuda)
     from horizongs_tpu_torch.ops.raster_cuda import (
         build_raster_inputs, build_raster_inputs_2dgs, count_instances_2dgs,
         suggest_instance_cap)
@@ -2804,6 +2815,7 @@ def main() -> int:
     TOOLS = (T1, *T2.values(), *T3.values())
     ALL = (K1, K2, K3, K4, *TOOLS)
     NO_TOOLS = (0,) * len(TOOLS)
+    P1 = (project3d.KERNEL, project3d.KERNEL_BWD)   # counted in phases 4-7
 
     # 1. device --------------------------------------------------------------
     card = _smi("name,power.limit")
@@ -2819,12 +2831,12 @@ def main() -> int:
     # 2. build: one nvcc per library, started together --------------------
     to_build = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "T1": T1,
                 **{f"T2 {v}": T2[v] for v in raster3d.VARIANTS[1:]},
-                "T3": T3["empty"]}
+                "T3": T3["empty"], "P1": project3d.KERNEL}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(to_build)) as pool:
         built = dict(zip(to_build, pool.map(lambda k: k.build(),
                                             to_build.values())))
-    print(f"build K1-K4, T1-T3: {time.perf_counter() - t0:.2f} s")
+    print(f"build K1-K4, T1-T3, P1: {time.perf_counter() - t0:.2f} s")
     for label, b in built.items():
         print(f"build {label}: {b.seconds:.2f} s -> {b.path.name}")
         for line in b.log.splitlines():
@@ -2945,7 +2957,8 @@ def main() -> int:
     n_inst = [count_render_instances(c, cfg, mlps, state) for c in cams]
     cap = suggest_instance_cap(max(n_inst), margin=1.15)
     sv = _serve(cams, cfg, mlps, state, bg, cap, build_raster_inputs,
-                raster3d.rasterize_fwd, ALL, (n_views, 0, 0, 0, *NO_TOOLS))
+                raster3d.rasterize_fwd, (*ALL, *P1),
+                (n_views, 0, 0, 0, *NO_TOOLS, n_views, 0))
     alpha_mean = sum(float(p["render_alphas"].mean())
                      for p in sv.pop("pkgs")) / n_views
     p50 = _median(sv["view_ms"])
@@ -3007,8 +3020,8 @@ def main() -> int:
     n_inst2 = [count_render_instances(c, cfg2d, mlps, state) for c in cams2d]
     cap2 = suggest_instance_cap(max(n_inst2), margin=1.15)
     sv2 = _serve(cams2d, cfg2d, mlps, state, bg, cap2,
-                 build_raster_inputs_2dgs, raster2d.rasterize2d_fwd, ALL,
-                 (0, 0, n_views_2d, 0, *NO_TOOLS))
+                 build_raster_inputs_2dgs, raster2d.rasterize2d_fwd,
+                 (*ALL, *P1), (0, 0, n_views_2d, 0, *NO_TOOLS, 0, 0))
     alpha_mean2 = sum(float(p["render_alphas"].mean())
                       for p in sv2.pop("pkgs")) / n_views_2d
 
@@ -3117,7 +3130,7 @@ def main() -> int:
     opt3d = make_optim(start_stat=0, update_interval=20,
                        success_threshold=0.5, min_opacity=0.1)
     tr = _train(cfg, opt3d, state, mlps, cams[0], bg, cap, live,
-                "rasterize_bwd", ALL, (1, 1, 0, 0, *NO_TOOLS))
+                "rasterize_bwd", (*ALL, *P1), (1, 1, 0, 0, *NO_TOOLS, 1, 1))
     # K2 at the main path's shapes: the first timed step's inputs
     b_args = tr.pop("captured")
     k2_args_1080 = b_args
@@ -3159,7 +3172,8 @@ def main() -> int:
     opt2d = make_optim(start_stat=0, lambda_normal=0.05, normal_start_iter=0,
                        lambda_dist=0.01, dist_start_iter=0)
     tr2 = _train(cfg2d, opt2d, state, mlps, cams2d[0], bg, cap2, live,
-                 "rasterize2d_bwd", ALL, (0, 0, 1, 1, *NO_TOOLS))
+                 "rasterize2d_bwd", (*ALL, *P1),
+                 (0, 0, 1, 1, *NO_TOOLS, 0, 0))
     tr2.pop("state")
     # K4 at the main path's shapes: the first timed step's inputs and
     # cotangents (the median's and the distortion's included)
@@ -3291,6 +3305,17 @@ def main() -> int:
     _require(min(tool_launches) > 0, f"a tool kernel was never launched: "
              f"{tool_launches}")
     tools_s = time.perf_counter() - t_tools
+
+    # 8b. P1 against the plain path at 10M rows, then timed ----------------
+    from horizongs_tpu_torch.tools.profile_project import (
+        profile_project, within_twice_plain)
+    p1 = profile_project(device=dev)
+    print(f"P1 {p1['rows']} rows: {json.dumps(p1)}")
+    _require(not any(n for n, _ in p1["forward_rows_off"].values()),
+             "P1's forward differs from the plain path")
+    _require(within_twice_plain({"all": p1["backward_errors"]}),
+             "P1's backward is further from float64 than twice the plain "
+             "path")
 
     # 9. densify: one coarse epoch of the trained 3DGS state -----------------
     from horizongs_tpu_torch.convert import (
@@ -3625,6 +3650,31 @@ def main() -> int:
                         "one_copy": t3_2040["copy_"]["launch_us"] / 1e3}
                        .get(k)),
         "card": card} for j, k in enumerate(("empty", "write", "one_copy"))]
+    n_all = len(ALL)
+    p1_paths = {p: paths[p] for p in ("serve_3dgs", "train_3dgs",
+                                      "serve_2dgs", "train_2dgs")}
+    p1_entries = [{
+        "name": f"project3d_{d} (P1)", "route": "cuda",
+        "source": "horizongs_tpu_torch/csrc/project3d.cu",
+        # no Pallas counterpart: the JAX package projects in plain jnp
+        "replaces": "horizongs_tpu_torch/ops/projection.py project_3dgs",
+        "launches": sum(n[n_all + j] for n in p1_paths.values()),
+        "launches_by_path": {p: n[n_all + j] for p, n in p1_paths.items()},
+        "max_abs_err": (max(big for _, big in p1["forward_rows_off"]
+                            .values()) if d == "fwd" else
+                        max(e[2] for e in p1["backward_errors"].values())),
+        "errors": (p1["forward_rows_off"] if d == "fwd"
+                   else p1["backward_errors"]),
+        "tolerance": ("bit for bit the plain path's fields, radii and cull "
+                      "radii" if d == "fwd" else
+                      "per leaf, error against float64 at most twice the "
+                      "plain float32 path's"),
+        "ms": p1[f"{d}_ms"], "plain_ms": p1[f"plain_{d}_ms"],
+        "bound_ms": p1[f"bound_{d}_ms"], "bound_by": "bytes",
+        "bound_share": p1[f"{d}_pct"] / 100.0, "library_ms": None,
+        **(_ptxas(built["P1"].log, f"project3d_{d}_kernel") or {}),
+        "rows": p1["rows"], "card": card}
+        for j, d in enumerate(("fwd", "bwd"))]
     print(json.dumps({"kernels": [{
         "name": "raster3d_fwd (K1)", "route": "cuda",
         "source": "horizongs_tpu_torch/csrc/raster3d_fwd.cu",
@@ -3692,7 +3742,7 @@ def main() -> int:
         "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
         "bound_by": k1_bound_by, "bound_ms_all_exact": k1_all_exact_ms,
         "library_ms": None, "card": card},
-        *t2_entries, *t3_entries]}))
+        *t2_entries, *t3_entries, *p1_entries]}))
     print(f"device: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

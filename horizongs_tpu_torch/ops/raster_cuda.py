@@ -1,18 +1,21 @@
 """CUDA-backed 3DGS and 2DGS rasterization, the counterpart of the JAX
-package's `ops/raster_pallas.py`: projection, SH colour and binning in
-PyTorch, the per-tile compositing in hand-written kernels: K1 (forward) and
-K2 (backward) of `ops/raster3d.py` for 3DGS, K3 and K4 of `ops/raster2d.py`
-for 2DGS (surfels).
+package's `ops/raster_pallas.py`: SH colour and binning in PyTorch, the
+per-tile compositing in hand-written kernels: K1 (forward) and K2
+(backward) of `ops/raster3d.py` for 3DGS, K3 and K4 of `ops/raster2d.py`
+for 2DGS (surfels). The 3DGS projection and the packing of its field row
+are one step, `ops/project3d.project_fields_3dgs` (P1's kernel pair on
+the card); the 2DGS projection is plain PyTorch.
 
 The kernel boundary is the packed per-gaussian field matrix, (N, 10)
 [mx, my, conic_a, conic_b, conic_c, opacity, r, g, b, depth] for 3DGS and
 (N, 18) [M1, M2, M3, mx, my, opacity, r, g, b, normal] for 2DGS, wrapped in
 a `torch.autograd.Function` (`RasterCore` / `RasterCore2D`, the JAX
 package's `_raster_core` / `_raster2d_core` custom VJPs). Everything before
-it (projection, SH colour, the neural decode) and after it (background
-blend, depth modes, depth normals, losses) differentiates with ordinary
-autograd; binning sees detached inputs, as the JAX wrapper's
-`stop_gradient`s make it.
+it (SH colour, the neural decode, the 2DGS projection) and after it
+(background blend, depth modes, depth normals, losses) differentiates
+with ordinary autograd, the 3DGS projection through P1's backward;
+binning sees detached inputs, as the JAX wrapper's `stop_gradient`s make
+it.
 
 Gradient routing: K2 and K4 add each instance's gradient into its
 gaussian's row of the field gradient themselves (atomics), so the JAX
@@ -23,9 +26,11 @@ requiring one) autograd records no node, so nothing is kept for backward.
 
 Spans (`horizongs_tpu_torch.tracing`, while its recorder is on):
 `render.bin` around the projection, cull, tile spans, instance build and
-sort (`build_raster_inputs*`), and inside it, for SH colours, `render.sh`
-around their evaluation; `render.composite` around the compositor and the
-assembly of the image; counters `render.instances`,
+sort (`build_raster_inputs*`), and inside it `render.project` around the
+projection (with its counters `render.project_rows` and
+`render.project_rows_card`, the rows P1 projected) and, for SH colours,
+`render.sh` around their evaluation; `render.composite` around the
+compositor and the assembly of the image; counters `render.instances`,
 `render.instance_cap`, and for SH colours `render.sh_rows` and
 `render.sh_coeffs`.
 """
@@ -41,14 +46,16 @@ from horizongs_tpu_torch.ops.binning import (
     TileInstances,
     build_tile_instances,
     count_tile_instances,
-    cull_radius,
 )
 from horizongs_tpu_torch.ops import raster2d
+from horizongs_tpu_torch.ops.project3d import (
+    _cull_radii,
+    project_fields_3dgs,
+)
 from horizongs_tpu_torch.ops.projection import (
     ProjectedGaussians,
     ProjectedSurfels,
     project_2dgs,
-    project_3dgs,
 )
 from horizongs_tpu_torch.ops.raster import _TileGrid, _make_grid, _tiles_to_image
 from horizongs_tpu_torch.ops.raster2d import rasterize2d_bwd, rasterize2d_fwd
@@ -60,7 +67,6 @@ from horizongs_tpu_torch.ops.raster3d import (
     rasterize_fwd,
 )
 from horizongs_tpu_torch.ops.reference import (
-    ALPHA_CUTOFF,
     _sh_colors,
     depth_to_normals,
 )
@@ -81,13 +87,6 @@ def suggest_instance_cap(n_instances: int, margin: float = 1.25) -> int:
     return -(-cap // G) * G
 
 
-def _cull_radii(proj, opacities: torch.Tensor, guard_px: float = 0.0):
-    # gaussians below the alpha cutoff can never contribute: not binned
-    return torch.where(opacities >= ALPHA_CUTOFF,
-                       cull_radius(proj.radii, opacities, guard_px=guard_px),
-                       torch.zeros_like(proj.radii))
-
-
 def _cap(cap: Optional[int], n: int) -> int:
     """The instance capacity: max(4N, G) by default, rounded up to G."""
     cap = cap if cap is not None else max(4 * n, G)
@@ -99,10 +98,11 @@ def count_instances_3dgs(means, quats, scales, opacities, viewmat, K,
     """Instance count `rasterize_cuda_3dgs` enumerates for this view;
     feed the max over sample views to `suggest_instance_cap`."""
     grid = _make_grid(width, height, TILE_W, TILE_H)
-    proj = project_3dgs(means, quats, scales, viewmat, K, width, height)
-    return count_tile_instances(proj.means2d, _cull_radii(proj, opacities),
-                                grid.n_tiles_x, grid.n_tiles_y, TILE_W,
-                                TILE_H, conics=proj.conics,
+    pf = project_fields_3dgs(means, quats, scales, opacities, None, viewmat,
+                             K, width, height)
+    return count_tile_instances(pf.fields[:, 0:2], pf.cull, grid.n_tiles_x,
+                                grid.n_tiles_y, TILE_W, TILE_H,
+                                conics=pf.fields[:, 2:5],
                                 opacities=opacities)
 
 
@@ -140,24 +140,23 @@ def build_raster_inputs(means, quats, scales, opacities, colors, viewmat, K,
     `cap` defaults to max(4N, G); it is rounded up to G, and instances
     beyond it are dropped and counted (`inst.n_dropped`).
     `means2d_probe` (N, 2), when given, is added to the projected means
-    that go into the fields (and `proj.means2d`), so its gradient is the
-    screen-space gradient of the means; binning never sees it (it is zero
-    in use). The JAX wrapper takes the sum as `means2d_override`."""
+    that go into the fields (and `proj.means2d`, a view of them), so its
+    gradient is the screen-space gradient of the means; it is zero in
+    use, so binning, which reads the field columns, bins the projected
+    means. The JAX wrapper takes the sum as `means2d_override`."""
     grid = _make_grid(width, height, TILE_W, TILE_H)
     cap = _cap(cap, means.shape[0])
-    proj = project_3dgs(means, quats, scales, viewmat, K, width, height)
     cam_pos = torch.linalg.inv(viewmat)[:3, 3]
-    rgb = _sh_rgb(colors, sh_degree, means, cam_pos)
+    pf = project_fields_3dgs(
+        means, quats, scales, opacities,
+        lambda: _sh_rgb(colors, sh_degree, means, cam_pos), viewmat, K,
+        width, height, means2d_probe)
+    f = pf.fields.detach()
     inst = build_tile_instances(
-        proj.means2d.detach(), _cull_radii(proj, opacities).detach(),
-        proj.depths.detach(), grid.n_tiles_x, grid.n_tiles_y, TILE_W,
-        TILE_H, cap, conics=proj.conics.detach(),
+        f[:, 0:2], pf.cull.detach(), f[:, 9], grid.n_tiles_x,
+        grid.n_tiles_y, TILE_W, TILE_H, cap, conics=f[:, 2:5],
         opacities=opacities.detach())
-    if means2d_probe is not None:
-        proj = proj._replace(means2d=proj.means2d + means2d_probe)
-    fields = torch.cat([proj.means2d, proj.conics, opacities[:, None], rgb,
-                        proj.depths[:, None]], dim=-1).contiguous()
-    return RasterInputs(proj, fields, inst, grid)
+    return RasterInputs(pf.proj, pf.fields, inst, grid)
 
 
 class RasterCore(torch.autograd.Function):
@@ -288,7 +287,10 @@ def build_raster_inputs_2dgs(means, quats, scales, opacities, colors,
     centre of the screen-space low-pass (fields mx, my)."""
     grid = _make_grid(width, height, raster2d.TILE_W, raster2d.TILE_H)
     cap = _cap(cap, means.shape[0])
-    proj = project_2dgs(means, quats, scales, viewmat, K, width, height)
+    with tracing.span("render.project"):
+        proj = project_2dgs(means, quats, scales, viewmat, K, width, height)
+    tracing.count("render.project_rows", means.shape[0])
+    tracing.count("render.project_rows_card", 0)
     cam_pos = torch.linalg.inv(viewmat)[:3, 3]
     rgb = _sh_rgb(colors, sh_degree, means, cam_pos)
     inst = build_tile_instances(

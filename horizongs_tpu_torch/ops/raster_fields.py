@@ -35,7 +35,8 @@ import torch
 
 from horizongs_tpu_torch.ops import raster2d, raster3d
 from horizongs_tpu_torch.ops.binning import build_tile_instances
-from horizongs_tpu_torch.ops.projection import project_2dgs, project_3dgs
+from horizongs_tpu_torch.ops.project3d import project_fields_3dgs
+from horizongs_tpu_torch.ops.projection import project_2dgs
 from horizongs_tpu_torch.ops.raster import _make_grid, _tiles_to_image
 from horizongs_tpu_torch.ops.raster_cuda import (
     GUARD_PX_2DGS,
@@ -65,21 +66,18 @@ def pack_fields_3dgs(means, quats, scales, opacities, colors, viewmat, K,
                      sh_degree: Optional[int] = None,
                      means2d_probe: Optional[torch.Tensor] = None):
     """Projection, SH colour and the lossless cull -> (fields (N, 10),
-    radii (N,), proj). `radii` is the cull radius of binning (0 where a
-    gaussian never contributes); `proj.radii` stays the geometric radius
-    the densification statistics read. `means2d_probe` is added to the
-    projected means in the fields, as `ops/raster_cuda.build_raster_inputs`
-    adds it."""
-    proj = project_3dgs(means, quats, scales, viewmat, K, width, height)
+    radii (N,), proj): `ops/project3d.project_fields_3dgs`. `radii` is the
+    cull radius of binning (0 where a gaussian never contributes);
+    `proj.radii` stays the geometric radius the densification statistics
+    read, and `proj`'s other fields are views of the field columns.
+    `means2d_probe` is added to the projected means in the fields, as
+    `ops/raster_cuda.build_raster_inputs` adds it."""
     cam_pos = torch.linalg.inv(viewmat)[:3, 3]
-    rgb = _sh_colors(colors, sh_degree, means, cam_pos)
-    radii = _cull_radii(proj, opacities)
-    means2d = proj.means2d
-    if means2d_probe is not None:
-        means2d = means2d + means2d_probe
-    fields = torch.cat([means2d, proj.conics, opacities[:, None], rgb,
-                        proj.depths[:, None]], dim=-1).contiguous()
-    return fields, radii, proj
+    pf = project_fields_3dgs(
+        means, quats, scales, opacities,
+        lambda: _sh_colors(colors, sh_degree, means, cam_pos), viewmat, K,
+        width, height, means2d_probe)
+    return pf.fields, pf.cull, pf.proj
 
 
 def pack_fields_2dgs(means, quats, scales, opacities, colors, viewmat, K,

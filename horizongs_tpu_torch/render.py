@@ -14,12 +14,14 @@ to the output.
 
 While the recorder of `horizongs_tpu_torch.tracing` is on, `decode_view`
 is the span `render.decode` (the LOD mask, the prefilter and the MLP
-decode) and the cuda path adds `render.bin` (with, for SH colours, the
-child `render.sh`) and `render.composite`; the decode counts
-`render.anchor_rows` (the rows it runs over) and `render.anchors_visible`
-(the rows the LOD mask and the prefilter keep), the cuda path
-`render.instances` and `render.instance_cap`, and for SH colours
-`render.sh_rows` and `render.sh_coeffs`.
+decode) and the cuda path adds `render.bin` (with the child
+`render.project` and, for SH colours, `render.sh`) and
+`render.composite`; the decode counts `render.anchor_rows` (the rows it
+runs over) and `render.anchors_visible` (the rows the LOD mask and the
+prefilter keep), the cuda path `render.project_rows`,
+`render.project_rows_card`, `render.instances` and
+`render.instance_cap`, and for SH colours `render.sh_rows` and
+`render.sh_coeffs`.
 
 `means2d_probe` is the handle for the screen-space gradients the
 densification statistics need (the JAX package's argument of the same

@@ -121,7 +121,8 @@ def _profiled(step, state, cam, dev, n_steps, kernels):
     if dev.type == "cuda":
         spans = []
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # the spans' mirrors on the device timeline are no work
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
                 n, ms = rows.get(e.name, (0, 0.0))
                 rows[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
                 spans.append((e.time_range.start, e.time_range.end))

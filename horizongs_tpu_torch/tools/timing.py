@@ -72,7 +72,8 @@ def device_profile(fn) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_name, spans = {}, []
         for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
+            # the spans' mirrors on the device timeline are no work
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3)
                 spans.append((e.time_range.start, e.time_range.end))

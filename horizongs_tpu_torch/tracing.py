@@ -44,8 +44,12 @@ into `<model_path>/profile/spans.json`.
     `trainer.calibrate`), `trainer.sync`, `trainer.densify`
   * `train/step.py`: `step.forward`, `step.backward`, `step.update`
   * `render.py` and `ops/raster_cuda.py`: `render.decode`, `render.bin`
-    (child `render.sh`, the SH colours' evaluation, only for SH colours),
-    `render.composite`; counters `render.anchor_rows`,
+    (children `render.project`, the projection, and `render.sh`, the SH
+    colours' evaluation, only for SH colours), `render.composite`;
+    counters `render.project_rows` (rows projected; also counted by the
+    3DGS projection outside `render.bin`: a calibration's count, the
+    sharded step's packing) and `render.project_rows_card` (those P1
+    projected on the card, `ops/project3d.py`), `render.anchor_rows`,
     `render.anchors_visible` (`models/anchors.decode_neural_gaussians`),
     `render.instances`, `render.instance_cap`, and for SH colours
     `render.sh_rows` (the rows evaluated) and `render.sh_coeffs` ((d+1)^2

@@ -44,8 +44,8 @@ def test_every_node_is_traced_to_its_forward_span(tmp_path, colour):
     assert r["steps"] == 1
     parts = set(r["nodes"])
     assert "unmatched" not in parts
-    assert {"render.decode", "render.bin", "render.composite",
-            "step.forward", "accumulate"} <= parts
+    assert {"render.decode", "render.bin", "render.project",
+            "render.composite", "step.forward", "accumulate"} <= parts
     # no device on the CPU: the node counts hold, every ms is 0
     assert not any(r[k] for k in ("forward", "backward", "update", "other"))
     if colour == "RGB":
